@@ -1,0 +1,72 @@
+"""Count-of-counts histogram (k-mer spectrum) (reference: src/histogram.rs).
+
+A histogram maps occurrence-count -> number of distinct k-mers with that
+count, ordered ascending by count (the reference's BTreeMap ordering;
+reference: src/histogram.rs:33).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Mapping
+
+import numpy as np
+
+
+def compute_histogram(counts: Mapping[str, int]) -> dict[int, int]:
+    """Histogram from string-keyed counts (reference: src/histogram.rs:88-94)."""
+    return _histogram_of_values(counts.values())
+
+
+def compute_histogram_packed(counts: Mapping[int, int]) -> dict[int, int]:
+    """Histogram from packed-keyed counts (reference: src/histogram.rs:110-116)."""
+    return _histogram_of_values(counts.values())
+
+
+def compute_histogram_array(count_values: np.ndarray) -> dict[int, int]:
+    """Histogram straight from a device-produced count array (vectorized)."""
+    if len(count_values) == 0:
+        return {}
+    vals, freqs = np.unique(np.asarray(count_values), return_counts=True)
+    return {int(v): int(f) for v, f in zip(vals, freqs)}
+
+
+def _histogram_of_values(values) -> dict[int, int]:
+    hist: dict[int, int] = {}
+    for c in values:
+        hist[c] = hist.get(c, 0) + 1
+    return dict(sorted(hist.items()))
+
+
+@dataclass(frozen=True)
+class HistogramStats:
+    """Summary statistics (reference: src/histogram.rs:148-169)."""
+
+    total_kmers: int
+    distinct_kmers: int
+    mode_count: int
+    mode_frequency: int
+    mean_count: float
+
+
+def histogram_stats(histogram: Mapping[int, int]) -> HistogramStats:
+    """Total/distinct/mode/mean over a histogram.
+
+    Mode ties resolve to the entry the max scan sees last among equals in
+    ascending count order, matching the reference's BTreeMap max_by_key
+    (last max wins on ties).
+    """
+    distinct = sum(histogram.values())
+    total = sum(c * f for c, f in histogram.items())
+    mode_count, mode_frequency = 0, 0
+    for c in sorted(histogram):
+        f = histogram[c]
+        if f >= mode_frequency:
+            mode_count, mode_frequency = c, f
+    return HistogramStats(
+        total_kmers=total,
+        distinct_kmers=distinct,
+        mode_count=mode_count,
+        mode_frequency=mode_frequency,
+        mean_count=(total / distinct) if distinct > 0 else 0.0,
+    )
