@@ -1,28 +1,36 @@
 """Smoke test of krust_tpu_torch on one NVIDIA GPU: kernels, then the main path.
 
-    python3 chip_smoke.py [--seed N] [--phases 1,2,3,4,5]
+    python3 chip_smoke.py [--seed N] [--phases 1,2,3,4,5,6]
 
 Needs a CUDA device and ``nvcc`` (the kernels build from
-``krust_tpu_torch/csrc`` at first use). Phases, each printing one JSON line:
+``krust_tpu_torch/csrc`` at first use). Phases, printing JSON lines:
 
 1. environment: GPU name and power limit, torch / CUDA / nvcc versions,
    kernel build time;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    main path's shapes, exactly equal (integer work: tolerance 0), with
    kernel and plain times;
-3. the main path at full size: 512 Mbases of 250 bp reads at 32x over a
-   16 Mbase genome (made with numpy from --seed), written as FASTA and
-   counted at k = 21 through ``api.count_with_input`` with
-   KRUST_ENGINE=device; the full table must equal the native C++ core's;
-4. multi-epoch: 64 Mbases with KRUST_EPOCH_ENTRIES = 2^22 at k = 16 and 31
+3. bench.py's workload: 512 Mbases of 250 bp reads at 32x over a 16 Mbase
+   genome (made with numpy from --seed), written as FASTA and counted at
+   k = 21 through ``api.count_with_input`` with KRUST_ENGINE=device, twice,
+   timed; the full table must equal the native C++ core's. It fits one
+   epoch of the default size, so it launches no merge;
+4. the main path at the default, memory-scaled epoch size: 1.25 epochs of
+   reads at 32x (about 1.5 Gbases on an 80 GB card), k = 21, so the table
+   sorts two epochs and merges their parts. The launch counters are set
+   to 0 just before this count and read just after it; every kernel must
+   have launched. Peak device memory is recorded. Equal to the native core;
+5. multi-epoch: 64 Mbases with KRUST_EPOCH_ENTRIES = 2^22 at k = 16 and 31
    (both key widths of the merge kernel), equal to the native core;
-5. edge k and masks: FASTQ with Ns, soft-masking and -Q 20 at
-   k in {1, 5, 17, 24, 32}, ~8 Mbases each, equal to the native core; plus
+6. edge k and masks: FASTQ with Ns, soft-masking and -Q 20 at
+   k in {1, 5, 17, 24, 32}, ~8 Mbases each, and a dirty FASTQ (about 7% of
+   bases invalid or below Q20) at k = 21, equal to the native core; plus
    one CLI run (``python -m krust_tpu_torch``) against the native core.
 
-The launch counters are zeroed before phase 3 and read after phase 5; the
-second-to-last line is the kernel table, the last line the result. Any
-failed check raises: the script exits non-zero and prints no result.
+Phases 3, 5 and 6 report their own launches. The second-to-last line is the
+kernel table (launches from phase 4, times from phase 2), the last line the
+result. Any failed check raises: the script exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -276,6 +284,11 @@ def _launches() -> dict:
     return {name: fn.launches for name, fn in _counters().items()}
 
 
+def _zero_launches() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
 def _phase3(rng, gpu, tmp):
     import torch
 
@@ -303,7 +316,7 @@ def _phase3(rng, gpu, tmp):
                      "launches": {n: after[n] - before[n] for n in after}})
     for r in runs:
         if r["launches"]["encode_windows"] <= 0 or r["launches"]["rle_compact"] <= 0:
-            raise AssertionError(f"main path skipped a kernel: {r['launches']}")
+            raise AssertionError(f"phase 3 skipped a kernel: {r['launches']}")
     t0 = time.perf_counter()
     exp = _native_counts(path, 21)
     native_s = time.perf_counter() - t0
@@ -315,7 +328,44 @@ def _phase3(rng, gpu, tmp):
     os.unlink(path)
 
 
-def _phase4(rng, gpu, tmp):
+def _phase4(rng, gpu, tmp) -> dict:
+    """The main path at the default epoch size; returns its launch counts."""
+    import torch
+
+    from krust_tpu_torch.ops.table import epoch_entry_limit
+
+    dev = torch.device("cuda", 0)
+    limit = epoch_entry_limit(dev)
+    bases = limit * 5 // 4 // READ_LEN * READ_LEN
+    genome = bases // 32
+    path = os.path.join(tmp, "reads_main.fa")
+    write_reads(path, rng, bases, genome)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    got = _port_counts(path, 21)
+    sec = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"main path never launched: {missing} ({launches})")
+    t0 = time.perf_counter()
+    exp = _native_counts(path, 21)
+    native_s = time.perf_counter() - t0
+    _assert_equal(got, exp, "phase 4 k=21")
+    _emit({"phase": 4, "k": 21, "bases": bases, "read_len": READ_LEN, "genome": genome,
+           "epoch_entries": limit, "distinct": got.distinct, "total": got.total,
+           "equal_to_native": True, "seconds": sec, "mbases_per_s": bases / 1e6 / sec,
+           "peak_device_bytes": peak,
+           "device_total_bytes": torch.cuda.mem_get_info(dev)[1],
+           "launches": launches, "native_core_s": native_s, "gpu": gpu})
+    os.unlink(path)
+    return launches
+
+
+def _phase5(rng, gpu, tmp):
     from krust_tpu_torch.utils.config import EngineConfig
 
     path = os.path.join(tmp, "reads64.fa")
@@ -331,8 +381,8 @@ def _phase4(rng, gpu, tmp):
             merges = after["merge_sorted"] - before["merge_sorted"]
             if merges <= 0:
                 raise AssertionError(f"k={k}: no part merge ran")
-            _assert_equal(got, _native_counts(path, k), f"phase 4 k={k}")
-            _emit({"phase": 4, "k": k, "bases": 64_000_000, "epoch_entries": 1 << 22,
+            _assert_equal(got, _native_counts(path, k), f"phase 5 k={k}")
+            _emit({"phase": 5, "k": k, "bases": 64_000_000, "epoch_entries": 1 << 22,
                    "merge_launches": merges, "distinct": got.distinct,
                    "equal_to_native": True, "seconds": sec, "gpu": gpu})
     finally:
@@ -340,17 +390,29 @@ def _phase4(rng, gpu, tmp):
     os.unlink(path)
 
 
-def _phase5(rng, gpu, tmp):
+def _phase6(rng, gpu, tmp):
     from krust_tpu_torch.output import OutputFormat, format_packed_counts
 
     path = os.path.join(tmp, "reads.fq")
     write_reads(path, rng, 8_000_000, 1_000_000, fastq=True, n_rate=0.004,
                  soft_rate=0.05, lowq_rate=0.01)
     for k in (1, 5, 17, 24, 32):
+        before = _launches()
         got = _port_counts(path, k, min_quality=20)
-        _assert_equal(got, _native_counts(path, k, 20), f"phase 5 k={k}")
-        _emit({"phase": 5, "k": k, "bases": 8_000_000, "min_quality": 20,
-               "distinct": got.distinct, "equal_to_native": True})
+        after = _launches()
+        _assert_equal(got, _native_counts(path, k, 20), f"phase 6 k={k}")
+        _emit({"phase": 6, "k": k, "bases": 8_000_000, "min_quality": 20,
+               "distinct": got.distinct, "equal_to_native": True,
+               "launches": {n: after[n] - before[n] for n in after}})
+    # a dirty stream: more than 1/32 of the bases invalid (the JAX package's
+    # dense path; the port keeps it on the flat kernel path)
+    dirty = os.path.join(tmp, "dirty.fq")
+    write_reads(dirty, rng, 8_000_000, 1_000_000, fastq=True, n_rate=0.05,
+                 soft_rate=0.05, lowq_rate=0.02)
+    got = _port_counts(dirty, 21, min_quality=20)
+    _assert_equal(got, _native_counts(dirty, 21, 20), "phase 6 dirty k=21")
+    _emit({"phase": 6, "k": 21, "bases": 8_000_000, "min_quality": 20,
+           "invalid_share": "~0.07", "distinct": got.distinct, "equal_to_native": True})
     small = os.path.join(tmp, "small.fq")
     write_reads(small, rng, 250_000, 100_000, fastq=True, n_rate=0.004,
                  soft_rate=0.05, lowq_rate=0.01)
@@ -363,7 +425,7 @@ def _phase5(rng, gpu, tmp):
     want = format_packed_counts(exp.codes, exp.counts, 24, OutputFormat.TSV, 1)
     if cli.stdout != want:
         raise AssertionError("CLI tsv output != native core")
-    _emit({"phase": 5, "cli": "python -m krust_tpu_torch 24 small.fq -f tsv -q -Q 20",
+    _emit({"phase": 6, "cli": "python -m krust_tpu_torch 24 small.fq -f tsv -q -Q 20",
            "lines": cli.stdout.count(b"\n"), "equal_to_native": True})
 
 
@@ -380,7 +442,7 @@ _REPLACES = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4,5")
+    ap.add_argument("--phases", default="1,2,3,4,5,6")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -413,20 +475,16 @@ def main() -> int:
         _check_merge(g, gpu, dev, results)
         torch.cuda.empty_cache()
 
-    for fn in _counters().values():
-        fn.launches = 0
+    launches = {name: None for name in _REPLACES}
     with tempfile.TemporaryDirectory() as tmp:
         if 3 in phases:
             _phase3(rng, gpu, tmp)
         if 4 in phases:
-            _phase4(rng, gpu, tmp)
+            launches = _phase4(rng, gpu, tmp)
         if 5 in phases:
             _phase5(rng, gpu, tmp)
-    launches = _launches()
-    if phases >= {3, 4, 5}:
-        missing = [n for n, c in launches.items() if c <= 0]
-        if missing:
-            raise AssertionError(f"main path never launched: {missing}")
+        if 6 in phases:
+            _phase6(rng, gpu, tmp)
 
     kernels = []
     for name, (source, replaces) in _REPLACES.items():
@@ -437,7 +495,7 @@ def main() -> int:
                         "plain_ms": r.get("plain_ms")})
     print(gpu, flush=True)
     _emit({"kernels": kernels})
-    if phases != {1, 2, 3, 4, 5}:
+    if phases != {1, 2, 3, 4, 5, 6}:
         return 0  # a partial run proves less: no result line
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Input abstraction, format detection, sequence readers, and the host packer."""
+"""Input abstraction, format detection, and sequence readers."""
 
 from .format import SequenceFormat
 from .input import Input
@@ -8,7 +8,6 @@ from .reader import (
     read_records_with_quality,
     stream_input_chunks,
 )
-from .packer import PackedBatch, pack_buffer, blockize
 
 __all__ = [
     "Input",
@@ -17,7 +16,4 @@ __all__ = [
     "read_records",
     "read_records_with_quality",
     "stream_input_chunks",
-    "PackedBatch",
-    "pack_buffer",
-    "blockize",
 ]

@@ -173,7 +173,7 @@ def scan_stream_native(
     """One-pass pack2 + invalid positions: (packed2, invpos, n_inv) or None.
 
     ``n_inv > max_inv`` signals early exit (too dirty; partial outputs were
-    discarded) — callers should use the dense-mask path.
+    discarded) — callers collect the positions another way.
     """
     lib = _get_lib()
     if lib is None or not hasattr(lib, "krust_scan_stream"):

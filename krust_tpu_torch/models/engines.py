@@ -303,28 +303,6 @@ class NativeEngine:
 # --- device batch engine ----------------------------------------------------------
 
 
-def _dense_step_plain(batch, k: int, device: torch.device) -> torch.Tensor:
-    """Dense-mask batch step in plain PyTorch (dirty inputs, CPU only).
-
-    Unpacks each haloed row's 2-bit bases and bad bits and keys its
-    ``block_windows`` windows; windows at global index >= ``n_windows``
-    are padding. The CUDA version is ROADMAP A8 (kernel K4).
-    """
-    from ..ops.fused_codec import unpack_2bit, window_keys_plain
-    from ..ops.keys import sentinel
-
-    w = batch.block_windows
-    rows = batch.packed2.shape[0]
-    p2 = torch.from_numpy(batch.packed2).to(device)  # rows are contiguous
-    bases = unpack_2bit(p2.reshape(-1), p2.numel() * 4).reshape(rows, -1)[:, : batch.width]
-    bad = torch.from_numpy(
-        np.unpackbits(batch.badbits, axis=1)[:, : batch.width].astype(bool)
-    ).to(device)
-    keys = window_keys_plain(bases, bad, k, w).reshape(-1)
-    keys[batch.n_windows :] = sentinel(keys.dtype)
-    return keys
-
-
 class _Feed:
     """Stage ``gen``'s batches on a background thread, ``depth`` deep.
 
@@ -425,41 +403,25 @@ class BatchEngine:
     def _make_table(self, k: int):
         from ..ops.table import EpochTable
 
-        return EpochTable(k, self.device, use_kernels=self.config.use_kernels)
+        return EpochTable(k, self.device)
 
     def _feed_streams(self, streams, k, min_quality, table, epochs, on_windows) -> None:
         """Feed one parsed stream's batches into ``table`` (shared by the
         eager and chunked ingest paths)."""
-        from ..io.packer import flat_batches, pack_buffer_2bit
+        from ..io.packer import flat_batches
         from ..ops import table as table_mod
-        from ..ops.fused_codec import TAIL_BYTES, encode_windows, encode_windows_plain
+        from ..ops.fused_codec import TAIL_BYTES, encode_windows
 
         cfg = self.config
         dev = self.device
         thr = _quality_threshold(min_quality) if streams.qual is not None else None
         qual_stream = streams.qual if thr is not None else None
-        flat = (
-            flat_batches(
-                streams.codes, qual_stream, k, thr, cfg.block_windows, cfg.batch_rows
-            )
-            if cfg.use_flat
-            else None
+        flat = flat_batches(
+            streams.codes, qual_stream, k, thr, cfg.block_windows, cfg.batch_rows
         )
-        if flat is None:  # dense path: invalid/quality-masked bases too numerous
-            if dev.type == "cuda":
-                raise NotImplementedError("dense path: ROADMAP A8")
-            for batch in pack_buffer_2bit(
-                streams.codes, qual_stream, k, thr, cfg.block_windows, cfg.batch_rows
-            ):
-                batch_windows = batch.packed2.shape[0] * batch.block_windows
-                if table.windows_this_epoch + batch_windows >= table_mod.EPOCH_WINDOW_LIMIT:
-                    epochs.append(table.finalize())
-                with span("encode_count_batch", rows=batch.packed2.shape[0]):
-                    table.add(_dense_step_plain(batch, k, dev), batch_windows)
-                on_windows(batch.n_windows)
-            return
+        if flat is None:  # a block geometry the flat layout cannot hold
+            raise NotImplementedError("dense path: ROADMAP A8")
 
-        encode = encode_windows if cfg.use_kernels else encode_windows_plain
         stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
 
         def stage(b):
@@ -479,7 +441,7 @@ class BatchEngine:
                     epochs.append(table.finalize())  # int32 count headroom
                 with span("encode_count_batch", rows=batch.rows):
                     # the flat step: packed slice -> one poisoned key per window
-                    keys = encode(packed, invpos, batch.covered, k, batch_windows)
+                    keys = encode_windows(packed, invpos, batch.covered, k, batch_windows)
                     table.add(keys, batch_windows)
                 on_windows(batch.covered)
 

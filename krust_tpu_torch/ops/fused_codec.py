@@ -39,21 +39,21 @@ def unpack_2bit(packed: torch.Tensor, n_bases: int) -> torch.Tensor:
 def window_keys_plain(
     bases: torch.Tensor, bad: torch.Tensor, k: int, n_windows: int
 ) -> torch.Tensor:
-    """Canonical keys of the first ``n_windows`` windows of each row.
+    """Canonical keys of the first ``n_windows`` windows.
 
-    ``bases`` int64 [rows, >= n_windows + k - 1] codes 0..3, ``bad`` bool
-    of the same shape. A window holding a bad base gets the sentinel key.
-    An int64 k-step shift/or over all windows; int64 arithmetic throughout
-    (CPU torch has no ``<<`` or ``minimum`` on unsigned dtypes).
+    ``bases`` int64 [>= n_windows + k - 1] codes 0..3, ``bad`` bool of the
+    same shape. A window holding a bad base gets the sentinel key. An int64
+    k-step shift/or over all windows; int64 arithmetic throughout (CPU
+    torch has no ``<<`` or ``minimum`` on unsigned dtypes).
     """
-    fwd = torch.zeros(bases.shape[0], n_windows, dtype=torch.int64, device=bases.device)
+    fwd = torch.zeros(n_windows, dtype=torch.int64, device=bases.device)
     rc = torch.zeros_like(fwd)
     for i in range(k):
-        b = bases[:, i : i + n_windows]
+        b = bases[i : i + n_windows]
         fwd = (fwd << 2) | b
         rc = rc | ((3 - b) << (2 * i))
-    cb = torch.nn.functional.pad(bad.to(torch.int32).cumsum(1), (1, 0))
-    poisoned = (cb[:, k : k + n_windows] - cb[:, :n_windows]) > 0
+    cb = torch.nn.functional.pad(bad.to(torch.int32).cumsum(0), (1, 0))
+    poisoned = (cb[k : k + n_windows] - cb[:n_windows]) > 0
     dt = key_dtype(k)
     if k <= 16:  # codes < 2^32: plain int64 min, then the 2^31 bias
         keys = torch.minimum(fwd, rc) - (1 << 31)
@@ -77,7 +77,7 @@ def encode_windows_plain(
     bad = torch.zeros(n_bases + 1, dtype=torch.bool, device=packed.device)
     pos = invpos.to(torch.int64).clamp(max=n_bases)  # padding -> spill slot
     bad[pos] = True
-    keys = window_keys_plain(bases[None], bad[None, :n_bases], k, n_windows)[0]
+    keys = window_keys_plain(bases, bad[:n_bases], k, n_windows)
     keys[max(covered, 0) :] = sentinel(keys.dtype)
     return keys
 

@@ -28,8 +28,8 @@ import torch
 from ..utils.numutil import round_pow2 as _round_pow2
 from ..utils.tracing import span, trace_event
 from .keys import keys_to_codes
-from .merge import merge_sorted, merge_sorted_plain
-from .rle import rle_compact, rle_compact_plain
+from .merge import merge_sorted
+from .rle import rle_compact
 
 #: windows per table lifetime, with headroom below 2^31 (counts are int32)
 EPOCH_WINDOW_LIMIT = 1 << 31
@@ -70,20 +70,27 @@ def epoch_entry_limit(device: torch.device) -> int:
     return _scaled_limit("KRUST_EPOCH_ENTRIES", EPOCH_ENTRY_LIMIT, device)
 
 
-def _epoch_concat_sort_rle(parts: list[torch.Tensor], rle):
+def _epoch_concat_sort_rle(parts: list[torch.Tensor]):
     """One epoch flush: concatenate raw parts, sort, run-length compact ->
     (keys, counts, n_unique device scalar)."""
     keys = parts[0] if len(parts) == 1 else torch.cat(parts)
     parts.clear()  # the raw parts die before the sort's working set exists
     s_keys = torch.sort(keys).values
     del keys
-    return rle(s_keys)
+    return rle_compact(s_keys)
 
 
-def _merge_compact(a, b, merge, rle):
+def _merge_compact(a, b):
     """Merge two compacted (keys, counts) parts and re-compact (weighted)."""
-    m_keys, m_cnt = merge(a[0], a[1], b[0], b[1])
-    return rle(m_keys, m_cnt)
+    m_keys, m_cnt = merge_sorted(a[0], a[1], b[0], b[1])
+    return rle_compact(m_keys, m_cnt)
+
+
+def _part(o_keys, o_cnt, n):
+    """A compacted part: the first round_pow2(n) entries of a full-length
+    RLE output, copied so the full-length buffers can be freed."""
+    keep = min(_round_pow2(max(n, 1)), o_keys.numel())
+    return o_keys[:keep].clone(), o_cnt[:keep].clone(), n
 
 
 class EpochTable:
@@ -100,18 +107,10 @@ class EpochTable:
     ADAPT_DUP_TARGET = 16
     ADAPT_MIN = 1 << 25
 
-    def __init__(
-        self,
-        k: int,
-        device: torch.device,
-        max_parts: int = 8,
-        use_kernels: bool = True,
-    ):
+    def __init__(self, k: int, device: torch.device, max_parts: int = 8):
         self._k = k
         self._device = torch.device(device)
         self._max_parts = max_parts
-        self._rle = rle_compact if use_kernels else rle_compact_plain
-        self._merge = merge_sorted if use_kernels else merge_sorted_plain
         self._epoch_limit = epoch_entry_limit(self._device)
         self._adaptive = not os.environ.get("KRUST_EPOCH_ENTRIES")
         self._reset()
@@ -154,8 +153,8 @@ class EpochTable:
                     "epoch_limit_adapted", new=new_limit, distinct=n, raw=epoch_raw
                 )
                 self._epoch_limit = new_limit
-        keep = min(_round_pow2(max(n, 1)), o_keys.numel())
-        self._compacted.append((o_keys[:keep], o_cnt[:keep], n))
+        self._compacted.append(_part(o_keys, o_cnt, n))
+        del o_keys, o_cnt
         if len(self._compacted) > self._max_parts:
             self._merge_compacted()
 
@@ -166,7 +165,7 @@ class EpochTable:
         with span("epoch_flush", pending=self._raw_pending):
             self._pending_epoch_raw = self._raw_pending
             self._raw_pending = 0
-            self._pending_epoch = _epoch_concat_sort_rle(self._raw, self._rle)
+            self._pending_epoch = _epoch_concat_sort_rle(self._raw)
             self._raw = []
 
     def _merge_compacted(self) -> None:
@@ -175,12 +174,9 @@ class EpochTable:
             nxt = []
             for i in range(0, len(runs) - 1, 2):
                 with span("part_merge"):
-                    o_keys, o_cnt, n_dev = _merge_compact(
-                        runs[i], runs[i + 1], self._merge, self._rle
-                    )
-                    n = int(n_dev.item())
-                keep = min(_round_pow2(max(n, 1)), o_keys.numel())
-                nxt.append((o_keys[:keep], o_cnt[:keep], n))
+                    o_keys, o_cnt, n_dev = _merge_compact(runs[i], runs[i + 1])
+                    nxt.append(_part(o_keys, o_cnt, int(n_dev.item())))
+                del o_keys, o_cnt
             if len(runs) % 2:
                 nxt.append(runs[-1])
             runs = nxt

@@ -40,16 +40,6 @@ class EngineConfig:
     #: automatic fallback when the native lib can't build
     use_native_host: bool = True
 
-    #: launch the hand-written CUDA kernels (codec, RLE, merge) for tensors
-    #: on a CUDA device. Off, the engine runs each kernel's plain PyTorch
-    #: version on the device instead (for comparisons; never a fallback).
-    use_kernels: bool = True
-
-    #: use the flat minimal-byte transfer path (2-bit stream slices + sparse
-    #: invalid positions) when invalid bases are sparse; dirty inputs take
-    #: the dense badbits path
-    use_flat: bool = True
-
     #: when set, file/stdin inputs stream through record-aligned chunks of
     #: this many bytes instead of one eager whole-file parse — bounded host
     #: memory for inputs larger than RAM (None = eager, the default)

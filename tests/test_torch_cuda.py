@@ -93,27 +93,35 @@ def test_merge_kernel_matches_plain(dev, dtype, ma, mb):
 
 
 @pytest.mark.parametrize("k", [5, 16, 21, 32])
-@pytest.mark.parametrize("use_kernels", [True, False], ids=["kernels", "plain"])
-def test_engine_on_cuda_matches_numpy(dev, monkeypatch, k, use_kernels):
-    """The device engine with small epochs (codec, sort, RLE and merges),
-    with the kernels and with their plain versions on the card."""
+def test_engine_on_cuda_matches_numpy(dev, monkeypatch, k):
+    """The device engine with small epochs: codec, sort, RLE and merges,
+    every kernel launched on the card."""
     monkeypatch.setenv("KRUST_EPOCH_ENTRIES", "4096")
     rng = np.random.default_rng(k)
     codes = rng.integers(0, 4, 60_000, dtype=np.uint8)
     codes[rng.random(60_000) < 0.01] = INVALID_CODE
     s = ParsedStreams(codes, None, 1, 60_000)
-    before = merge_sorted.launches
-    cfg = EngineConfig(block_windows=256, batch_rows=8, device=dev, use_kernels=use_kernels)
+    before = {f: f.launches for f in (encode_windows, rle_compact, merge_sorted)}
+    cfg = EngineConfig(block_windows=256, batch_rows=8, device=dev)
     got = BatchEngine(cfg).count(s, k)
     exp = NumpyEngine().count(s, k)
     np.testing.assert_array_equal(got.codes, exp.codes)
     np.testing.assert_array_equal(got.counts, exp.counts)
-    assert (merge_sorted.launches > before) == use_kernels
+    assert all(f.launches > n for f, n in before.items())
 
 
 def test_dense_input_raises_on_cuda(dev):
+    """Dirty input counts on the flat kernel path; only a geometry the flat
+    layout cannot hold raises (the dense path is ROADMAP A8)."""
     rng = np.random.default_rng(4)
     codes = rng.integers(0, 4, 5000, dtype=np.uint8)
     codes[rng.random(5000) < 0.2] = INVALID_CODE
+    s = ParsedStreams(codes, None, 1, 5000)
     with pytest.raises(NotImplementedError, match="A8"):
-        BatchEngine(EngineConfig(device=dev)).count(ParsedStreams(codes, None, 1, 5000), 11)
+        BatchEngine(EngineConfig(block_windows=260, device=dev)).count(s, 11)
+    before = encode_windows.launches
+    got = BatchEngine(EngineConfig(device=dev)).count(s, 11)
+    exp = NumpyEngine().count(s, 11)
+    np.testing.assert_array_equal(got.codes, exp.codes)
+    np.testing.assert_array_equal(got.counts, exp.counts)
+    assert encode_windows.launches > before

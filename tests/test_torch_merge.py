@@ -17,7 +17,6 @@ from krust_tpu.ops.pallas_merge import merge_sorted_kv, merge_sorted_lv
 from krust_tpu.ops.table import _merge_compact as jax_merge_compact
 from krust_tpu_torch.ops.keys import parts_from_numpy, parts_to_numpy
 from krust_tpu_torch.ops.merge import merge_sorted
-from krust_tpu_torch.ops.rle import rle_compact
 from krust_tpu_torch.ops.table import _merge_compact
 
 SENT = 0xFFFFFFFF
@@ -84,8 +83,7 @@ def test_merge_compact_matches_jax(k):
     b = tuple(map(jnp.asarray, (bh, bl, bc)))
     e_h, e_l, e_c, e_n = jax_merge_compact(a, b, True, one_key=k <= 16)
     keys, cnt, n_u = _merge_compact(
-        parts_from_numpy(ah, al, ac, k), parts_from_numpy(bh, bl, bc, k),
-        merge_sorted, rle_compact,
+        parts_from_numpy(ah, al, ac, k), parts_from_numpy(bh, bl, bc, k)
     )
     assert int(n_u.item()) == int(e_n)
     g_h, g_l, g_c = parts_to_numpy(keys, cnt, k)

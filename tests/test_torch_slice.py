@@ -113,7 +113,8 @@ def _write_random(path, rng, n_rec, fastq, n_rate, soft_rate, lowq_rate):
     ids=["fasta-flat", "fastq-q20-flat", "fastq-q20-dense"],
 )
 def test_random_inputs_match_jax_and_oracle(tmp_path, k, fastq, n_rate, min_quality):
-    """Sparse invalids ride the flat path, dirty ones the dense path."""
+    """Sparse and dirty invalids (the JAX package sends the dirty ones down
+    its dense path; the port keeps them on the flat one)."""
     rng = np.random.default_rng(1000 * k + int(fastq) + int(100 * n_rate))
     path = tmp_path / ("r.fq" if fastq else "r.fa")
     _write_random(path, rng, 30, fastq, n_rate, 0.1, 0.005 if n_rate < 0.05 else 0.05)
@@ -140,20 +141,38 @@ def test_multi_epoch_matches_jax(tmp_path, monkeypatch, k):
     np.testing.assert_array_equal(got.counts, exp.counts)
 
 
-def test_cli_tsv_matches_jax_cli(tmp_path):
+def test_cli_tsv_matches_jax_cli(tmp_path, monkeypatch, capsysbinary):
+    """The port's CLI, counting through its BatchEngine on the CPU with
+    small epochs (codec, sort, RLE and merges), against ``python -m
+    krust_tpu`` on its XLA-CPU device engine."""
     path = str(tmp_path / "r.fq")
     _write_random(tmp_path / "r.fq", np.random.default_rng(21), 20, True, 0.01, 0.1, 0.01)
-    env = dict(os.environ, KRUST_PLATFORM="cpu", KRUST_ENGINE="native",
+    used = []
+
+    def select(cfg):
+        used.append(1)
+        return BatchEngine(EngineConfig(block_windows=256, batch_rows=8, device="cpu"))
+
+    monkeypatch.setattr(engines, "select_engine", select)
+    monkeypatch.setenv("KRUST_EPOCH_ENTRIES", "700")
+    merges = []
+    real = table_mod._merge_compact
+    monkeypatch.setattr(
+        table_mod, "_merge_compact", lambda *a: merges.append(1) or real(*a)
+    )
+    from krust_tpu_torch import cli
+
+    assert cli.main(["21", path, "-f", "tsv", "-q"]) == 0
+    out = capsysbinary.readouterr().out
+    assert used and merges
+    monkeypatch.delenv("KRUST_EPOCH_ENTRIES")
+    env = dict(os.environ, KRUST_PLATFORM="cpu", KRUST_ENGINE="device",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-
-    def run(pkg):
-        return subprocess.run(
-            [sys.executable, "-m", pkg, "21", path, "-f", "tsv", "-q"],
-            capture_output=True, env=env, timeout=300, check=True, cwd=REPO,
-        ).stdout
-
-    out = run("krust_tpu_torch")
-    assert out and out == run("krust_tpu")
+    exp = subprocess.run(
+        [sys.executable, "-m", "krust_tpu", "21", path, "-f", "tsv", "-q"],
+        capture_output=True, env=env, timeout=300, check=True, cwd=REPO,
+    ).stdout
+    assert out and out == exp
 
 
 def test_import_leaves_jax_out():
@@ -205,14 +224,20 @@ def test_select_engine(monkeypatch):
 
 
 def test_dense_path_raises_on_cuda_device():
-    """A CUDA engine never routes dirty input through plain ops."""
+    """A block geometry the flat layout cannot hold needs the dense path,
+    which is not ported (A8): the engine refuses it on every device, never
+    routing it through plain ops. Dirty input stays on the flat path."""
     rng = np.random.default_rng(4)
     codes = rng.integers(0, 4, 5000, dtype=np.uint8)
     codes[rng.random(5000) < 0.2] = INVALID_CODE
-    eng = BatchEngine(EngineConfig(block_windows=256, batch_rows=8, device="cpu"))
-    eng.device = torch.device("cuda")  # only the dispatch is exercised
+    s = ParsedStreams(codes, None, 1, 5000)
+    eng = BatchEngine(EngineConfig(block_windows=260, batch_rows=8, device="cpu"))
     with pytest.raises(NotImplementedError, match="A8"):
-        eng._feed_streams(ParsedStreams(codes, None, 1, 5000), 11, None, None, [], print)
+        eng.count(s, 11)
+    got = BatchEngine(EngineConfig(block_windows=256, batch_rows=8, device="cpu")).count(s, 11)
+    exp = NumpyEngine().count(s, 11)
+    np.testing.assert_array_equal(got.codes, exp.codes)
+    np.testing.assert_array_equal(got.counts, exp.counts)
 
 
 @pytest.mark.parametrize("depth", [0, 1, 3])
