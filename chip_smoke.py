@@ -1,36 +1,47 @@
-"""Smoke test of krust_tpu_torch on one NVIDIA GPU: kernels, then the main path.
+"""Smoke test of krust_tpu_torch on one NVIDIA GPU: kernels, then the counting paths.
 
-    python3 chip_smoke.py [--seed N] [--phases 1,2,3,4,5,6]
+    python3 chip_smoke.py [--seed N] [--phases 1,2,3,4,5,6,7]
 
 Needs a CUDA device and ``nvcc`` (the kernels build from
-``krust_tpu_torch/csrc`` at first use). Phases, printing JSON lines:
+``krust_tpu_torch/csrc`` at first use, one nvcc per source, in parallel).
+Phases, printing JSON lines:
 
 1. environment: GPU name and power limit, torch / CUDA / nvcc versions,
    kernel build time;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    main path's shapes, exactly equal (integer work: tolerance 0), with
-   kernel and plain times;
+   kernel and plain times, the least time the card could take for the same
+   work (``bound_ms``) and, where one PyTorch call computes the same
+   function, that call's time (``library_ms``; never called by the port).
+   K5 lies on no counting path: its launches in the kernel line are those
+   of its timing here;
 3. bench.py's workload: 512 Mbases of 250 bp reads at 32x over a 16 Mbase
    genome (made with numpy from --seed), written as FASTA and counted at
    k = 21 through ``api.count_with_input`` with KRUST_ENGINE=device, twice,
    timed; the full table must equal the native C++ core's. It fits one
    epoch of the default size, so it launches no merge;
-4. the main path at the default, memory-scaled epoch size: 1.25 epochs of
-   reads at 32x (about 1.5 Gbases on an 80 GB card), k = 21, so the table
-   sorts two epochs and merges their parts. The launch counters are set
-   to 0 just before this count and read just after it; every kernel must
+4. the clean main path at the default, memory-scaled epoch size: 1.25
+   epochs of reads at 32x (about 1.5 Gbases on an 80 GB card), k = 21, so
+   the table sorts two epochs and merges their parts. The launch counters
+   are set to 0 just before this count and read just after it; K1-K3 must
    have launched. Peak device memory is recorded. Equal to the native core;
 5. multi-epoch: 64 Mbases with KRUST_EPOCH_ENTRIES = 2^22 at k = 16 and 31
    (both key widths of the merge kernel), equal to the native core;
-6. edge k and masks: FASTQ with Ns, soft-masking and -Q 20 at
-   k in {1, 5, 17, 24, 32}, ~8 Mbases each, and a dirty FASTQ (about 7% of
-   bases invalid or below Q20) at k = 21, equal to the native core; plus
-   one CLI run (``python -m krust_tpu_torch``) against the native core.
+6. edge k and masks on the flat path: FASTQ with Ns, soft-masking and
+   -Q 20 at k in {1, 5, 17, 24, 32}, ~8 Mbases each, equal to the native
+   core; plus one CLI run (``python -m krust_tpu_torch``) against it;
+7. the dense path at full size: 512 Mbases of 250 bp FASTQ reads at 32x
+   over a 16 Mbase genome with about 5% of bases N or below Q20 (above the
+   1/32 line), counted at -Q 20, k = 21, twice, timed, with the counters
+   set to 0 just before each count (K4 and K2 must launch, K1 must not),
+   equal to the native core; the host time of ``pack_buffer_2bit``; the
+   same parsed stream timed on both device routes (dense, and flat with
+   the invalid positions scanned without the 1/32 limit); a dirty ~8 Mbase
+   FASTQ at k in {1, 5, 16, 17, 24, 32} and one block_windows = 8 count.
 
-Phases 3, 5 and 6 report their own launches. The second-to-last line is the
-kernel table (launches from phase 4, times from phase 2), the last line the
-result. Any failed check raises: the script exits non-zero and prints no
-result.
+The second-to-last line is the kernel table (launches from each kernel's
+phase, times from phase 2), the last line the result. Any failed check
+raises: the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -48,6 +59,13 @@ import numpy as np
 READ_LEN = 250
 GENOME = 16_000_000
 MAIN_BASES = 512_000_000
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7}
+
+#: the card's peaks the bound is taken against (NVIDIA H100 SXM data sheet):
+#: HBM bytes/s, and the float32 rate outside the tensor cores as the rate
+#: of the kernels' integer ALU work
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
 
 
 def _gpu_line() -> str:
@@ -75,6 +93,29 @@ def _time_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the ALU rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ALU_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "bound_bytes": n_bytes, "bound_ops": n_ops}
+
+
+def _codec_ops(n_windows: int, k: int) -> float:
+    """Integer operations of a codec kernel: per group of four windows,
+    k + 3 base extractions with their forward and reverse-complement
+    updates (about 8 operations each), and 4 per window for the canonical
+    minimum, the validity test and the store."""
+    return n_windows / 4 * (8 * (k + 3) + 16)
+
+
+def _search_ops(n_entries: int, other: int) -> float:
+    """Integer operations of the rank-scatter merge: a binary search of
+    log2(other) + 1 steps of about 4 operations per entry."""
+    return n_entries * 4 * (max(other, 1).bit_length() + 1)
 
 
 def _max_abs_err(pairs) -> int:
@@ -121,12 +162,16 @@ def _check_codec(rng, gpu, dev, results):
             raise AssertionError(f"K1 k={k}: kernel != plain")
         ms = _time_ms(lambda: encode_windows(pk, iv, covered, k, n_windows))
         plain_ms = _time_ms(lambda: encode_windows_plain(pk, iv, covered, k, n_windows), 2)
-        times[k] = (ms, plain_ms, err)
+        bound = _bound(pk.numel() + 4 * iv.numel() + got.numel() * got.element_size(),
+                       _codec_ops(n_windows, k))
+        times[k] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                    "library_ms": None, **bound}
         _emit({"phase": 2, "kernel": "encode_windows", "k": k, "windows": n_windows,
-               "equal": True, "ms": ms, "plain_ms": plain_ms, "gpu": gpu})
-    ms, plain_ms, err = times[21]  # the main path's k
-    results["encode_windows"] = {"max_abs_err": max(t[2] for t in times.values()),
-                                 "ms": ms, "plain_ms": plain_ms}
+               "equal": True, **times[k], "gpu": gpu})
+    # the main path's k; no single PyTorch call computes the poisoned keys
+    results["encode_windows"] = dict(
+        times[21], max_abs_err=max(t["max_abs_err"] for t in times.values())
+    )
 
 
 def _sorted_keys(g, n, n_distinct, dtype, dev):
@@ -165,11 +210,19 @@ def _check_rle(g, gpu, dev, results):
             raise AssertionError(f"K2 {dtype} weighted={weighted}: kernel != plain")
         ms = _time_ms(lambda: rle_compact(keys, cnt))
         plain_ms = _time_ms(lambda: rle_compact_plain(keys, cnt), 2)
+        # unit weights: one PyTorch call computes the same runs and counts
+        library_ms = None if weighted else _time_ms(
+            lambda: torch.unique_consecutive(keys, return_counts=True)
+        )
+        ks = keys.element_size()
+        n_bytes = n * ks + (4 * n if weighted else 0) + n * (ks + 4) + 16
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "max_abs_err": err, **_bound(n_bytes, 12 * n)}
         _emit({"phase": 2, "kernel": "rle_compact", "keys": str(dtype), "n": n,
                "weighted": weighted, "n_unique": int(got[2].item()), "equal": True,
-               "ms": ms, "plain_ms": plain_ms, "gpu": gpu})
+               **row, "gpu": gpu})
         if timed is None:
-            timed = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            timed = row
         del keys, cnt, got, exp
     results["rle_compact"] = timed
 
@@ -196,12 +249,100 @@ def _check_merge(g, gpu, dev, results):
             raise AssertionError(f"K3 {dtype}: kernel != plain")
         ms = _time_ms(lambda: merge_sorted(*parts))
         plain_ms = _time_ms(lambda: merge_sorted_plain(*parts), 2)
+        ma, mb = parts[0].numel(), parts[2].numel()
+        n_bytes = 2 * (ma + mb) * (parts[0].element_size() + 4)
+        # no single PyTorch call merges a payload along with the keys
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "max_abs_err": err,
+               **_bound(n_bytes, _search_ops(ma, mb) + _search_ops(mb, ma))}
         _emit({"phase": 2, "kernel": "merge_sorted", "keys": str(dtype),
-               "entries": [m, m], "equal": True, "ms": ms, "plain_ms": plain_ms,
-               "gpu": gpu})
+               "entries": [ma, mb], "equal": True, **row, "gpu": gpu})
         if timed is None:
-            timed = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            timed = row
     results["merge_sorted"] = timed
+
+
+def _check_dense(rng, gpu, dev, results):
+    """K4 at the dense path's batch shape: 8192 rows x 4096 windows, about
+    7% bad bits, the last 100 rows all-bad padding."""
+    import torch
+
+    from krust_tpu_torch.ops.codec import encode_dense, encode_dense_plain
+
+    rows, w = 8192, 4096
+    times = {}
+    for k in (16, 21, 31, 32):
+        width = w + k - 1
+        p4, p8 = -(-width // 4), -(-width // 8)
+        packed2 = rng.integers(0, 256, size=(rows, p4), dtype=np.uint8)
+        badbits = np.packbits(rng.random((rows, 8 * p8)) < 0.07, axis=1)
+        packed2[-100:] = 0
+        badbits[-100:] = 0xFF
+        p2 = torch.from_numpy(packed2).to(dev)
+        bb = torch.from_numpy(badbits).to(dev)
+        got = encode_dense(p2, bb, k, w)
+        exp = encode_dense_plain(p2, bb, k, w)
+        torch.cuda.synchronize()
+        err = _max_abs_err([(got, exp)])
+        if not torch.equal(got, exp):
+            raise AssertionError(f"K4 k={k}: kernel != plain")
+        ms = _time_ms(lambda: encode_dense(p2, bb, k, w))
+        plain_ms = _time_ms(lambda: encode_dense_plain(p2, bb, k, w), 2)
+        bound = _bound(p2.numel() + bb.numel() + got.numel() * got.element_size(),
+                       _codec_ops(rows * w, k))
+        # no single PyTorch call computes the poisoned keys
+        times[k] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                    "library_ms": None, **bound}
+        _emit({"phase": 2, "kernel": "encode_dense", "k": k, "rows": rows,
+               "block_windows": w, "equal": True, **times[k], "gpu": gpu})
+        del p2, bb, got, exp
+    results["encode_dense"] = dict(
+        times[21], max_abs_err=max(t["max_abs_err"] for t in times.values())
+    )
+
+
+def _check_merge_keys(rng, gpu, dev, results):
+    """K5 at 2 x 16.8M uint32 keys: half at or above 2^31, ties, sentinel
+    tails. Its timing launches are its launches in the kernel line: no
+    counting path calls it."""
+    import torch
+
+    from krust_tpu_torch.ops.merge import (
+        widen_u32, merge_sorted_keys, merge_sorted_keys_plain,
+    )
+
+    m = 1 << 24
+    arrays = []
+    for tail in (m // 64, m // 16):
+        a = np.sort(rng.integers(0, 1 << 32, m, dtype=np.uint64)[: m - tail]).astype(np.uint32)
+        arrays.append(np.concatenate([a, np.full(tail, 0xFFFFFFFF, np.uint32)]))
+    a, b = (torch.from_numpy(x).to(dev) for x in arrays)
+    cat = torch.from_numpy(np.concatenate(arrays)).to(dev)
+    got = merge_sorted_keys(a, b)
+    exp = merge_sorted_keys_plain(a, b)
+    torch.cuda.synchronize()
+    got64, exp64 = widen_u32(got), widen_u32(exp)
+    if not torch.equal(got64, exp64):
+        raise AssertionError("K5: kernel != plain")
+    err = _max_abs_err([(got64, exp64)])
+    merge_sorted_keys.launches = 0
+    ms = _time_ms(lambda: merge_sorted_keys(a, b))
+    launches = merge_sorted_keys.launches
+    plain_ms = _time_ms(lambda: merge_sorted_keys_plain(a, b), 2)
+    # one PyTorch call computes the same function: a sort of the
+    # concatenated keys (of their int64 widening where CUDA sorts no uint32)
+    try:
+        torch.sort(cat)
+        library_call = "torch.sort(uint32)"
+    except (RuntimeError, NotImplementedError):
+        cat = widen_u32(cat)
+        library_call = "torch.sort(int64 widening)"
+    library_ms = _time_ms(lambda: torch.sort(cat))
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_call": library_call, "max_abs_err": err, "launches": launches,
+           **_bound(4 * 4 * m, 2 * _search_ops(m, m))}
+    _emit({"phase": 2, "kernel": "merge_sorted_keys", "entries": [m, m], "equal": True,
+           **row, "gpu": gpu})
+    results["merge_sorted_keys"] = row
 
 
 # --- phases 3-5: the main path ---------------------------------------------------
@@ -272,12 +413,14 @@ def _assert_equal(got, exp, what):
 
 
 def _counters():
+    from krust_tpu_torch.ops.codec import encode_dense
     from krust_tpu_torch.ops.fused_codec import encode_windows
-    from krust_tpu_torch.ops.merge import merge_sorted
+    from krust_tpu_torch.ops.merge import merge_sorted, merge_sorted_keys
     from krust_tpu_torch.ops.rle import rle_compact
 
     return {"encode_windows": encode_windows, "rle_compact": rle_compact,
-            "merge_sorted": merge_sorted}
+            "merge_sorted": merge_sorted, "encode_dense": encode_dense,
+            "merge_sorted_keys": merge_sorted_keys}
 
 
 def _launches() -> dict:
@@ -329,7 +472,8 @@ def _phase3(rng, gpu, tmp):
 
 
 def _phase4(rng, gpu, tmp) -> dict:
-    """The main path at the default epoch size; returns its launch counts."""
+    """The clean main path at the default epoch size; returns its launch
+    counts."""
     import torch
 
     from krust_tpu_torch.ops.table import epoch_entry_limit
@@ -348,7 +492,8 @@ def _phase4(rng, gpu, tmp) -> dict:
     sec = time.perf_counter() - t0
     launches = _launches()
     peak = torch.cuda.max_memory_allocated()
-    missing = [n for n, c in launches.items() if c <= 0]
+    missing = [n for n in ("encode_windows", "rle_compact", "merge_sorted")
+               if launches[n] <= 0]
     if missing:
         raise AssertionError(f"main path never launched: {missing} ({launches})")
     t0 = time.perf_counter()
@@ -404,15 +549,6 @@ def _phase6(rng, gpu, tmp):
         _emit({"phase": 6, "k": k, "bases": 8_000_000, "min_quality": 20,
                "distinct": got.distinct, "equal_to_native": True,
                "launches": {n: after[n] - before[n] for n in after}})
-    # a dirty stream: more than 1/32 of the bases invalid (the JAX package's
-    # dense path; the port keeps it on the flat kernel path)
-    dirty = os.path.join(tmp, "dirty.fq")
-    write_reads(dirty, rng, 8_000_000, 1_000_000, fastq=True, n_rate=0.05,
-                 soft_rate=0.05, lowq_rate=0.02)
-    got = _port_counts(dirty, 21, min_quality=20)
-    _assert_equal(got, _native_counts(dirty, 21, 20), "phase 6 dirty k=21")
-    _emit({"phase": 6, "k": 21, "bases": 8_000_000, "min_quality": 20,
-           "invalid_share": "~0.07", "distinct": got.distinct, "equal_to_native": True})
     small = os.path.join(tmp, "small.fq")
     write_reads(small, rng, 250_000, 100_000, fastq=True, n_rate=0.004,
                  soft_rate=0.05, lowq_rate=0.01)
@@ -429,20 +565,134 @@ def _phase6(rng, gpu, tmp):
            "lines": cli.stdout.count(b"\n"), "equal_to_native": True})
 
 
+def _phase7(rng, gpu, tmp) -> dict:
+    """The dense path at full size; returns the launch counts of its first
+    count."""
+    import torch
+
+    from krust_tpu_torch.io import packer
+    from krust_tpu_torch.io.format import SequenceFormat
+    from krust_tpu_torch.io.reader import parse_to_streams, read_input_bytes
+    from krust_tpu_torch.kmer import INVALID_CODE
+    from krust_tpu_torch.models.engines import BatchEngine
+    from krust_tpu_torch.utils.config import EngineConfig
+
+    k, q = 21, 20
+    path = os.path.join(tmp, "dirty_main.fq")
+    t0 = time.perf_counter()
+    write_reads(path, rng, MAIN_BASES, GENOME, fastq=True, n_rate=0.02, lowq_rate=0.03)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exp = _native_counts(path, k, q)
+    native_s = time.perf_counter() - t0
+
+    def dense_only(launches, what):
+        if (launches["encode_dense"] <= 0 or launches["rle_compact"] <= 0
+                or launches["encode_windows"] != 0):
+            raise AssertionError(f"{what} did not take the dense path: {launches}")
+
+    runs, first = [], None
+    for _ in range(2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        got = _port_counts(path, k, min_quality=q)
+        sec = time.perf_counter() - t0
+        launches = _launches()
+        dense_only(launches, "phase 7")
+        _assert_equal(got, exp, "phase 7 k=21")
+        first = first or launches
+        runs.append({"seconds": sec, "mbases_per_s": MAIN_BASES / 1e6 / sec,
+                     "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                     "launches": launches})
+
+    # one parse of the same file: its invalid share, the dense packer's host
+    # time, and the stream timed on both device routes
+    streams = parse_to_streams(read_input_bytes(path), SequenceFormat.AUTO.resolve(path))
+    thr = q + 33
+    invalid_share = float(np.mean((streams.codes >= INVALID_CODE) | (streams.qual < thr)))
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in packer.pack_buffer_2bit(streams.codes, streams.qual, k, thr,
+                                                        4096, 8192))
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scan = packer.flat_scan(streams.codes, streams.qual, thr, streams.codes.shape[0])
+    scan_s = time.perf_counter() - t0
+    engine = BatchEngine(EngineConfig())
+    flat_batches = packer.flat_batches
+
+    def flat_route(codes, qual, kk, t, w, rows):
+        """The flat layout without its 1/32 limit (a measurement only)."""
+        scanned = packer.flat_scan(codes, qual, t, codes.shape[0])
+        return flat_batches(codes, qual, kk, t, w, rows, prescanned=scanned)
+
+    route_s = {"dense": [], "flat": []}
+    for name in ("dense", "flat", "flat", "dense"):
+        _zero_launches()
+        if name == "flat":
+            packer.flat_batches = flat_route
+        try:
+            t0 = time.perf_counter()
+            got = engine.count(streams, k, q)
+            route_s[name].append(time.perf_counter() - t0)
+        finally:
+            packer.flat_batches = flat_batches
+        launches = _launches()
+        codec = "encode_dense" if name == "dense" else "encode_windows"
+        other = "encode_windows" if name == "dense" else "encode_dense"
+        if launches[codec] <= 0 or launches[other] != 0:
+            raise AssertionError(f"route {name}: {launches}")
+        _assert_equal(got, exp, f"phase 7 route {name}")
+    _emit({"phase": 7, "k": k, "min_quality": q, "bases": MAIN_BASES, "read_len": READ_LEN,
+           "genome": GENOME, "invalid_share": invalid_share, "distinct": exp.distinct,
+           "total": exp.total, "equal_to_native": True, "data_gen_s": gen_s, "runs": runs,
+           "native_core_s": native_s, "pack_buffer_2bit_s": pack_s,
+           "pack_buffer_2bit_batches": n_batches, "flat_scan_unlimited_s": scan_s,
+           "invalid_positions": int(scan[1].shape[0]),
+           "route_count_s": route_s, "gpu": gpu})
+    del streams, scan
+    os.unlink(path)
+
+    dirty = os.path.join(tmp, "dirty.fq")
+    write_reads(dirty, rng, 8_000_000, 1_000_000, fastq=True, n_rate=0.05,
+                soft_rate=0.05, lowq_rate=0.02)
+    cases = [(kk, None) for kk in (1, 5, 16, 17, 24, 32)] + [(21, 8)]
+    for kk, w in cases:
+        config = EngineConfig(block_windows=w) if w else None
+        before = _launches()
+        got = _port_counts(dirty, kk, min_quality=q, config=config)
+        after = _launches()
+        launches = {n: after[n] - before[n] for n in after}
+        dense_only(launches, f"phase 7 dirty k={kk}")
+        _assert_equal(got, _native_counts(dirty, kk, q), f"phase 7 dirty k={kk}")
+        _emit({"phase": 7, "k": kk, "block_windows": w or 4096, "bases": 8_000_000,
+               "min_quality": q, "invalid_share": "~0.07", "distinct": got.distinct,
+               "equal_to_native": True, "launches": launches})
+    os.unlink(dirty)
+    return first
+
+
+#: per kernel wrapper: its source, the TPU kernel it replaces, and the
+#: phase whose counting run (or, for K5, timing) gives its launches
 _REPLACES = {
     "encode_windows": ("krust_tpu_torch/csrc/fused_codec.cu",
-                       "krust_tpu/ops/pallas_fused.py:258"),
-    "rle_compact": ("krust_tpu_torch/csrc/rle.cu", "krust_tpu/ops/pallas_rle.py:366"),
+                       "krust_tpu/ops/pallas_fused.py:258", 4),
+    "rle_compact": ("krust_tpu_torch/csrc/rle.cu", "krust_tpu/ops/pallas_rle.py:366", 4),
     "merge_sorted": ("krust_tpu_torch/csrc/merge.cu",
                      "krust_tpu/ops/pallas_merge.py:522 (merge_sorted_kv) and "
-                     ":414 (merge_sorted_lv)"),
+                     ":414 (merge_sorted_lv)", 4),
+    "encode_dense": ("krust_tpu_torch/csrc/codec.cu",
+                     "krust_tpu/ops/pallas_codec.py:145", 7),
+    "merge_sorted_keys": ("krust_tpu_torch/csrc/merge.cu",
+                          "krust_tpu/ops/pallas_merge.py:248", 2),
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4,5,6")
+    ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))))
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -473,29 +723,35 @@ def main() -> int:
         _check_codec(rng, gpu, dev, results)
         _check_rle(g, gpu, dev, results)
         _check_merge(g, gpu, dev, results)
+        _check_dense(rng, gpu, dev, results)
+        _check_merge_keys(rng, gpu, dev, results)
         torch.cuda.empty_cache()
 
-    launches = {name: None for name in _REPLACES}
+    launches = {2: {"merge_sorted_keys": results.get("merge_sorted_keys", {}).get("launches")}}
     with tempfile.TemporaryDirectory() as tmp:
         if 3 in phases:
             _phase3(rng, gpu, tmp)
         if 4 in phases:
-            launches = _phase4(rng, gpu, tmp)
+            launches[4] = _phase4(rng, gpu, tmp)
         if 5 in phases:
             _phase5(rng, gpu, tmp)
         if 6 in phases:
             _phase6(rng, gpu, tmp)
+        if 7 in phases:
+            launches[7] = _phase7(rng, gpu, tmp)
 
     kernels = []
-    for name, (source, replaces) in _REPLACES.items():
+    for name, (source, replaces, phase) in _REPLACES.items():
         r = results.get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
-                        "plain_ms": r.get("plain_ms")})
+                        "replaces": replaces, "launches": launches.get(phase, {}).get(name),
+                        "launches_phase": phase, "max_abs_err": r.get("max_abs_err"),
+                        "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+                        "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
+                        "library_ms": r.get("library_ms")})
     print(gpu, flush=True)
     _emit({"kernels": kernels})
-    if phases != {1, 2, 3, 4, 5, 6}:
+    if phases != ALL_PHASES:
         return 0  # a partial run proves less: no result line
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,12 @@ canonical k-mer counting (k = 1-32, 2-bit packed) over FASTA/FASTQ
 (plain/gzip, file/stdin) with N-base skipping, soft-mask normalization and
 Phred quality filtering; FASTA/TSV/JSON/histogram output with min-count
 filtering; a byte-compatible binary ``.kmix`` index plus query; library,
-streaming and progress APIs; and a CLI with the same UX.
+builder, streaming, progress, memory-mapped and async APIs; and a CLI with
+the same UX.
 
 Architecture (GPU):
   host reader/packer  ->  packed 2-bit stream slices + sparse invalid positions
+                          (dirty streams: haloed 2-bit rows + invalid bitmask)
   codec kernel        ->  one biased canonical key per window (sentinel if bad)
   epoch sort + RLE    ->  compacted distinct (key, count) parts on the device
   merge kernel + RLE  ->  one part; copied to the host as u64 (code, count)
@@ -38,6 +40,7 @@ from .api import (
     count_kmers_stdin_with_format,
     count_kmers_from_sequences,
     count_kmers_from_sequences_packed,
+    count_kmers_mmap,
     count_kmers_sniffed,
     count_with_input,
     run,
@@ -46,6 +49,8 @@ from .api import (
     run_with_input_format,
     run_with_quality,
 )
+from .async_api import AsyncKmerCounter, count_kmers_async, count_kmers_packed_async
+from .builder import KmerCounter
 from .errors import (
     BuilderError,
     FormatError,
@@ -66,6 +71,7 @@ from .histogram import (
 from .index import KmerIndex, load_index, save_index
 from .io.format import SequenceFormat
 from .io.input import Input
+from .io.mmapfile import MmapFasta
 from .kmer import (
     Kmer,
     KmerBase,
@@ -102,12 +108,19 @@ __all__ = [
     "count_kmers_sniffed",
     "count_kmers_from_sequences",
     "count_kmers_from_sequences_packed",
+    "count_kmers_mmap",
     "count_with_input",
     "run",
     "run_with_options",
     "run_with_input",
     "run_with_input_format",
     "run_with_quality",
+    # async
+    "AsyncKmerCounter",
+    "count_kmers_async",
+    "count_kmers_packed_async",
+    # builder
+    "KmerCounter",
     # kmer core
     "Kmer",
     "KmerBase",
@@ -119,6 +132,7 @@ __all__ = [
     "canonical_string",
     # io
     "Input",
+    "MmapFasta",
     "SequenceFormat",
     # output / histogram
     "OutputFormat",

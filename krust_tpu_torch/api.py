@@ -1,8 +1,8 @@
 """Public counting APIs (reference: src/run.rs:66-426, src/streaming.rs:95-509).
 
 Every reference entry point has an equivalent here with the same semantics
-(the memory-mapped and multi-device entry points of ``krust_tpu`` are not
-ported yet: ROADMAP); string-keyed functions return ``dict[str, int]`` of canonical k-mer ->
+(the multi-device entry points of ``krust_tpu`` are not ported yet:
+ROADMAP A10); string-keyed functions return ``dict[str, int]`` of canonical k-mer ->
 count, packed variants return ``dict[int, int]`` keyed by the 2-bit packed
 canonical code.
 """
@@ -143,6 +143,25 @@ def count_kmers_with_progress(
             records, kk, progress=callback, tracker=ProgressTracker()
         ).to_string_dict()
     return _count_path(path, k, progress=callback).to_string_dict()
+
+
+def count_kmers_mmap(
+    path: str | os.PathLike, k: int, config: EngineConfig | None = None
+) -> dict[str, int]:
+    """Count from a memory-mapped FASTA file (reference: src/run.rs:691-756).
+
+    The file bytes are mapped read-only through :class:`~krust_tpu_torch.io.
+    mmapfile.MmapFasta` instead of read eagerly; parsing consumes the map
+    directly (page-cache-backed, no heap copy of the file).
+    """
+    from .io.mmapfile import MmapFasta
+
+    resolved = SequenceFormat.AUTO.resolve(path)
+    with MmapFasta.open(path) as mapped:
+        if mapped.is_empty():
+            return {}
+        streams = parse_to_streams(mapped.as_bytes(), resolved)
+    return count_streams(streams, KmerLength(k).get(), config=config).to_string_dict()
 
 
 def count_kmers_files(

@@ -22,13 +22,6 @@
 
 namespace {
 
-// base t (0..35) of the group, from the 8 big-endian bytes in w0 and the
-// ninth byte in w1
-__device__ __forceinline__ uint64_t base_at(uint64_t w0, uint32_t w1, int t) {
-  return t < 32 ? (w0 >> (62 - 2 * t)) & 3ull
-                : static_cast<uint64_t>((w1 >> (70 - 2 * t)) & 3u);
-}
-
 template <typename Key>
 __global__ void encode_windows_kernel(const uint8_t* __restrict__ packed,
                                       const int32_t* __restrict__ invpos,
@@ -42,15 +35,8 @@ __global__ void encode_windows_kernel(const uint8_t* __restrict__ packed,
 #pragma unroll
   for (int i = 0; i < 8; ++i) w0 = (w0 << 8) | p[i];
   const uint32_t w1 = p[8];
-
-  const uint64_t mask = k == 32 ? ~0ull : ((1ull << (2 * k)) - 1);
-  const int top = 2 * (k - 1);
-  uint64_t fwd = 0, rc = 0;
-  for (int t = 0; t < k; ++t) {
-    const uint64_t c = base_at(w0, w1, t);
-    fwd = (fwd << 2) | c;
-    rc = (rc >> 2) | ((3ull - c) << top);
-  }
+  uint64_t canon[4];
+  group_canonical(w0, w1, k, canon);
 
   const int64_t j0 = 4 * q;
   // first invalid position >= j0
@@ -62,16 +48,10 @@ __global__ void encode_windows_kernel(const uint8_t* __restrict__ packed,
 
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    if (r) {
-      const uint64_t c = base_at(w0, w1, k - 1 + r);
-      fwd = ((fwd << 2) | c) & mask;
-      rc = (rc >> 2) | ((3ull - c) << top);
-    }
     const int64_t j = j0 + r;
     while (lo < n_inv && invpos[lo] < j) ++lo;
     const bool bad = j >= covered || (lo < n_inv && invpos[lo] <= j + k - 1);
-    const uint64_t canon = rc < fwd ? rc : fwd;
-    out[j] = bad ? KeyTraits<Key>::kSentinel : KeyTraits<Key>::from_code(canon);
+    out[j] = bad ? KeyTraits<Key>::kSentinel : KeyTraits<Key>::from_code(canon[r]);
   }
 }
 

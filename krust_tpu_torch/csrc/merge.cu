@@ -1,13 +1,18 @@
-// K3: merge of two key-sorted compacted parts (keys + int32 counts).
+// K3: merge of two key-sorted compacted parts (keys + int32 counts), and
+// K5: merge of two sorted uint32 key arrays (no payload).
 //
-// Replaces krust_tpu/ops/pallas_merge.py:merge_sorted_kv (64-bit keys,
+// K3 replaces krust_tpu/ops/pallas_merge.py:merge_sorted_kv (64-bit keys,
 // k > 16) and merge_sorted_lv (32-bit keys, k <= 16): one kernel
 // templated on the key width. Sentinel tails are ordinary maximal keys.
+// K5 replaces krust_tpu/ops/pallas_merge.py:merge_sorted, the keys-only
+// merge of two equal-length uint32 arrays (0xFFFFFFFF padding allowed):
+// the same kernel instantiated for uint32_t keys, so keys compare
+// unsigned, and no counts.
 //
 // Bound on the H100: the binary searches' dependent loads (log2 of the
 // other part's length per entry, mostly L2 hits near the top of the
 // search); the bytes moved are one read and one write of both parts. The
-// TPU kernel splits the output along merge-path diagonals and runs a
+// TPU kernels split the output along merge-path diagonals and run a
 // Batcher network per chunk in VMEM. This first Hopper version is a
 // rank-scatter merge instead: a[i] lands at i + lower_bound(b, a[i]) and
 // b[j] at j + upper_bound(a, b[j]). Equal keys keep a-before-b order, every
@@ -53,13 +58,13 @@ __global__ void merge_rank_kernel(const Key* __restrict__ a,
     const Key v = a[t];
     const int64_t pos = t + lower_bound(b, mb, v);
     out_keys[pos] = v;
-    out_cnt[pos] = ac[t];
+    if (out_cnt != nullptr) out_cnt[pos] = ac[t];
   } else if (t < ma + mb) {
     const int64_t j = t - ma;
     const Key v = b[j];
     const int64_t pos = j + upper_bound(a, ma, v);
     out_keys[pos] = v;
-    out_cnt[pos] = bc[j];
+    if (out_cnt != nullptr) out_cnt[pos] = bc[j];
   }
 }
 
@@ -81,7 +86,7 @@ int launch(const void* a, const void* ac, int64_t ma, const void* b,
 
 }  // namespace
 
-// out_keys / out_cnt: ma + mb entries each
+// out_keys / out_cnt: ma + mb entries each; K3
 KRUST_API int krust_merge_i32(int device, const void* a, const void* ac, int64_t ma,
                               const void* b, const void* bc, int64_t mb,
                               void* out_keys, void* out_cnt, void* stream) {
@@ -96,4 +101,12 @@ KRUST_API int krust_merge_i64(int device, const void* a, const void* ac, int64_t
   const int err = set_device(device);
   if (err) return err;
   return launch<int64_t>(a, ac, ma, b, bc, mb, out_keys, out_cnt, stream);
+}
+
+// K5: a and b m uint32 keys each, out 2m; compared unsigned
+KRUST_API int krust_merge_keys_u32(int device, const void* a, const void* b,
+                                   int64_t m, void* out, void* stream) {
+  const int err = set_device(device);
+  if (err) return err;
+  return launch<uint32_t>(a, nullptr, m, b, nullptr, m, out, nullptr, stream);
 }

@@ -1,9 +1,9 @@
 """ctypes loader for the native C++ parser (graceful numpy fallback).
 
-Builds the reference package's ``krust_tpu/io/native/krust_native.cpp`` by
-file path (no second copy of the C++, and no import of ``krust_tpu``) with
-g++ on first use, cached as a .so under ``krust_tpu_torch/_build/`` keyed
-by the source's content hash. Disable with ``KRUST_NO_NATIVE=1``.
+Builds the package's own ``io/native/krust_native.cpp`` (a byte-for-byte
+copy of the JAX package's core, held equal by a test) with g++ on first
+use, cached as a .so under ``krust_tpu_torch/_build/`` keyed by the
+source's content hash. Disable with ``KRUST_NO_NATIVE=1``.
 """
 
 from __future__ import annotations
@@ -19,9 +19,7 @@ import numpy as np
 from ..errors import FormatError
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(
-    os.path.dirname(_PKG), "krust_tpu", "io", "native", "krust_native.cpp"
-)
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native", "krust_native.cpp")
 _BUILD = os.path.join(_PKG, "_build")
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None

@@ -1,13 +1,20 @@
-"""Host packer: flat code streams -> 2-bit stream slices for the device.
+"""Host packer: flat code streams -> 2-bit batches for the device.
 
 Given the flat separator-delimited code stream from the reader, this module
 cuts it into batches of ``rows`` block rows of ``W`` windows each (a row's
 ``k - 1``-base halo is the next row's start, so every length-k window of the
-stream lands in exactly one row). A batch crosses to the device as its
-2-bit packed bytes plus the sorted positions of its invalid bases; the codec
-kernel keys every window and gives a window holding an invalid base, or one
-past the stream's end, the sentinel key — the device analog of the
-reference's per-record window scan restarting after an invalid base
+stream lands in exactly one row). Two layouts cross to the device:
+
+- flat (:func:`flat_batches`): a batch is a contiguous 2-bit slice of the
+  stream plus the sorted positions of its invalid bases, taken while
+  invalid bases are at most 1/32 of the stream;
+- dense (:func:`pack_buffer_2bit`): each row is its own haloed 2-bit row
+  plus a 1-bit-per-base invalid mask, for dirtier streams and for block
+  geometries the flat layout cannot hold.
+
+The codec kernels key every window and give a window holding an invalid
+base, or one past the stream's end, the sentinel key — the device analog
+of the reference's per-record window scan restarting after an invalid base
 (reference: src/run.rs:526-563, src/streaming.rs:622-660).
 """
 
@@ -25,6 +32,102 @@ DEFAULT_BLOCK_WINDOWS = 4096
 
 #: Row-count multiple for padding.
 ROW_MULTIPLE = 8
+
+
+@dataclass
+class PackedBatch2:
+    """Bit-packed dense device batch: 2-bit base codes + 1-bit invalid mask.
+
+    0.375 bytes/base on the link: ``packed2`` holds 4 bases/byte (first
+    base in the high 2 bits), ``badbits`` 8 validity flags/byte (bit 7 =
+    first base; set = invalid). Quality filtering is folded into
+    ``badbits`` on the host, so no quality bytes cross the link. Padding
+    rows are all-bad; bases past the stream's end are bad, so no window
+    needs a ``covered`` mask.
+    """
+
+    packed2: np.ndarray  # [B, ceil(width/4)] uint8
+    badbits: np.ndarray  # [B, ceil(width/8)] uint8
+    n_windows: int
+    block_windows: int
+    width: int  # unpacked row width = block_windows + k - 1
+
+
+def pack_stream_2bit(
+    codes: np.ndarray,
+    qual: np.ndarray | None = None,
+    quality_threshold: int | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Pack a flat code stream into (packed2, badbits) arrays (host, numpy)."""
+    n = codes.shape[0]
+    bad = codes >= INVALID_CODE
+    if qual is not None and quality_threshold is not None:
+        bad = bad | (qual < quality_threshold)
+    b2 = codes & 3
+
+    n4 = -(-max(n, 1) // 4) * 4
+    if n4 != n:
+        b2 = np.concatenate([b2, np.zeros(n4 - n, np.uint8)])
+    q = b2.reshape(-1, 4).astype(np.uint8)
+    packed2 = (q[:, 0] << 6) | (q[:, 1] << 4) | (q[:, 2] << 2) | q[:, 3]
+
+    n8 = -(-max(n, 1) // 8) * 8
+    if n8 != n:
+        bad = np.concatenate([bad, np.ones(n8 - n, bool)])
+    badbits = np.packbits(bad)
+    return packed2, badbits
+
+
+def pack_buffer_2bit(
+    codes: np.ndarray,
+    qual: np.ndarray | None,
+    k: int,
+    quality_threshold: int | None = None,
+    block_windows: int = DEFAULT_BLOCK_WINDOWS,
+    batch_rows: int | None = None,
+    row_multiple: int = ROW_MULTIPLE,
+):
+    """Yield :class:`PackedBatch2` chunks covering the whole stream.
+
+    ``block_windows`` must be a multiple of 8 so every row starts on both a
+    4-base (packed2) and 8-base (badbits) boundary; other geometries raise.
+    """
+    w = block_windows
+    if w % 8:
+        raise ValueError(f"block_windows must be a multiple of 8, got {w}")
+    width = w + k - 1
+    t = max(codes.shape[0] - k + 1, 0)
+    n_blocks = -(-t // w) if t > 0 else 0
+
+    packed2, badbits = pack_stream_2bit(codes, qual, quality_threshold)
+    p4 = -(-width // 4)
+    p8 = -(-width // 8)
+
+    # pad packed streams so the last row's slices stay in bounds
+    need4 = (max(n_blocks, 1) - 1) * (w // 4) + p4
+    if packed2.shape[0] < need4:
+        packed2 = np.concatenate(
+            [packed2, np.zeros(need4 - packed2.shape[0], np.uint8)]
+        )
+    need8 = (max(n_blocks, 1) - 1) * (w // 8) + p8
+    if badbits.shape[0] < need8:
+        badbits = np.concatenate(
+            [badbits, np.full(need8 - badbits.shape[0], 0xFF, np.uint8)]
+        )
+
+    step_rows = batch_rows if batch_rows is not None else max(n_blocks, 1)
+    for row0 in range(0, max(n_blocks, 1), step_rows):
+        rows = min(step_rows, max(n_blocks, 1) - row0)
+        rows_padded = max(-(-rows // row_multiple) * row_multiple, row_multiple)
+        v4 = np.lib.stride_tricks.sliding_window_view(packed2, p4)[:: w // 4]
+        v8 = np.lib.stride_tricks.sliding_window_view(badbits, p8)[:: w // 8]
+        out4 = np.zeros((rows_padded, p4), np.uint8)
+        out8 = np.full((rows_padded, p8), 0xFF, np.uint8)
+        if n_blocks > 0:
+            out4[:rows] = v4[row0 : row0 + rows]
+            out8[:rows] = v8[row0 : row0 + rows]
+        covered = min((row0 + rows) * w, t) - row0 * w if t > 0 else 0
+        yield PackedBatch2(out4, out8, max(covered, 0), w, width)
 
 
 @dataclass
@@ -96,8 +199,8 @@ def _flat_eligible(k: int, w: int, batch_rows: int) -> bool:
     """Geometry preconditions of the flat path.
 
     Rows must start on byte boundaries (w % 8), the halo must fit one block,
-    and segment offsets must fit int32. Other geometries need the dense
-    path, which is not ported yet (ROADMAP A8).
+    and segment offsets must fit int32. Other geometries take the dense
+    path (:func:`pack_buffer_2bit`).
     """
     return not (w % 8 or w < k - 1 or batch_rows * w + k - 1 >= (1 << 31))
 
@@ -127,19 +230,25 @@ def flat_scan(
     quality_threshold: int | None,
     max_inv: int,
 ):
-    """The flat path's stream scan: ``(packed2 | None, invpos)``.
+    """The flat path's stream scan: ``(packed2 | None, invpos)``, or None.
 
-    The native scan packs 2-bit bytes and collects up to ``max_inv``
-    invalid positions in one pass. Without it, or past ``max_inv`` (a dirty
-    stream), a numpy scan sized to the positions' count collects them and
-    the 2-bit pack is left to the consumer (``packed2`` None).
+    The native scan packs 2-bit bytes and collects the invalid positions in
+    one pass; without it, a numpy scan collects the positions and the 2-bit
+    pack is left to the consumer (``packed2`` None). Returns None when the
+    invalid positions exceed ``max_inv`` (the caller takes the dense path).
     """
     from . import native
 
     scanned = native.scan_stream_native(codes, qual, quality_threshold, max_inv)
-    if scanned is not None and scanned[2] <= max_inv:
-        return scanned[0], scanned[1]
-    return None, invalid_positions(codes, qual, quality_threshold)
+    if scanned is not None:
+        packed2_pre, inv, n_inv = scanned
+        if n_inv > max_inv:
+            return None
+        return packed2_pre, inv
+    inv = invalid_positions(codes, qual, quality_threshold)
+    if inv.shape[0] > max_inv:
+        return None
+    return None, inv
 
 
 def flat_batches(
@@ -150,18 +259,28 @@ def flat_batches(
     block_windows: int = DEFAULT_BLOCK_WINDOWS,
     batch_rows: int = 8192,
     row_multiple: int = ROW_MULTIPLE,
+    prescanned: tuple[np.ndarray | None, np.ndarray] | None = None,
 ):
-    """Yield :class:`FlatBatch` chunks, or None for an ineligible geometry.
+    """Yield :class:`FlatBatch` chunks, or None for the dense path.
 
-    ``block_windows`` must be a multiple of 8 so every row starts on a
-    4-base byte boundary (see :func:`_flat_eligible`). Any density of
-    invalid bases is accepted.
+    Returns None when the geometry is ineligible (see
+    :func:`_flat_eligible`) or when invalid bases exceed 1/32 of the
+    stream: past that point the positions array outweighs a dense bitmask.
+    ``prescanned`` takes a caller's own :func:`flat_scan` result in place
+    of the scan at ``max_inv = n // 32``.
     """
     w = block_windows
     if not _flat_eligible(k, w, batch_rows):
         return None
     n = codes.shape[0]
-    packed2_pre, inv = flat_scan(codes, qual, quality_threshold, n // 32)
+    scan = (
+        prescanned
+        if prescanned is not None
+        else flat_scan(codes, qual, quality_threshold, n // 32)
+    )
+    if scan is None:
+        return None
+    packed2_pre, inv = scan
 
     def gen():
         packed2 = packed2_pre if packed2_pre is not None else pack2_full(codes)

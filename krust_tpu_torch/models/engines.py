@@ -2,13 +2,14 @@
 
 Three interchangeable engines produce identical results:
 
-- :class:`BatchEngine` — the GPU path. 2-bit stream slices transfer in
-  fixed-shape batches; the codec kernel (:mod:`krust_tpu_torch.ops.
-  fused_codec`) turns each into raw sentinel-keyed window keys for the
-  epoch-sort table (:class:`krust_tpu_torch.ops.table.EpochTable`: one flat
-  ``torch.sort`` per epoch + the RLE kernel, parts merged by the merge
-  kernel). Replaces the reference's rayon + dashmap engine
-  (reference: src/run.rs:489-583).
+- :class:`BatchEngine` — the GPU path. 2-bit stream slices (or, for
+  dirty streams, dense 2-bit rows with an invalid bitmask) transfer in
+  fixed-shape batches; a codec kernel (:mod:`krust_tpu_torch.ops.
+  fused_codec`, :mod:`krust_tpu_torch.ops.codec`) turns each into raw
+  sentinel-keyed window keys for the epoch-sort table
+  (:class:`krust_tpu_torch.ops.table.EpochTable`: one flat ``torch.sort``
+  per epoch + the RLE kernel, parts merged by the merge kernel). Replaces
+  the reference's rayon + dashmap engine (reference: src/run.rs:489-583).
 - :class:`NumpyEngine` / :class:`NativeEngine` — the same algorithm on the
   host in numpy uint64 / the native C++ core. The no-GPU engines, and the
   differential oracles.
@@ -407,43 +408,73 @@ class BatchEngine:
 
     def _feed_streams(self, streams, k, min_quality, table, epochs, on_windows) -> None:
         """Feed one parsed stream's batches into ``table`` (shared by the
-        eager and chunked ingest paths)."""
-        from ..io.packer import flat_batches
+        eager and chunked ingest paths).
+
+        The flat path while invalid bases are sparse (K1 on stream slices
+        plus invalid positions); the dense path (K4 on haloed 2-bit rows
+        plus an invalid bitmask) for dirtier streams and for block
+        geometries the flat layout cannot hold, as ``krust_tpu`` routes.
+        """
+        from ..io.packer import flat_batches, pack_buffer_2bit
         from ..ops import table as table_mod
+        from ..ops.codec import encode_dense
         from ..ops.fused_codec import TAIL_BYTES, encode_windows
 
         cfg = self.config
         dev = self.device
         thr = _quality_threshold(min_quality) if streams.qual is not None else None
         qual_stream = streams.qual if thr is not None else None
+        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+        def to_device(*arrays):
+            if stream is None:
+                return tuple(_to_device(a, dev) for a in arrays)
+            with torch.cuda.stream(stream):
+                return tuple(_to_device(a, dev) for a in arrays)
+
         flat = flat_batches(
             streams.codes, qual_stream, k, thr, cfg.block_windows, cfg.batch_rows
         )
-        if flat is None:  # a block geometry the flat layout cannot hold
-            raise NotImplementedError("dense path: ROADMAP A8")
+        if flat is not None:
+            batches = flat
 
-        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+            def stage(b):
+                need = b.rows * b.block_windows // 4 + TAIL_BYTES
+                packed = np.zeros(need, np.uint8)
+                m = min(need, b.packed2.shape[0])
+                packed[:m] = b.packed2[:m]
+                return to_device(packed, b.invpos), b
 
-        def stage(b):
-            need = b.rows * b.block_windows // 4 + TAIL_BYTES
-            packed = np.zeros(need, np.uint8)
-            m = min(need, b.packed2.shape[0])
-            packed[:m] = b.packed2[:m]
-            if stream is None:
-                return _to_device(packed, dev), _to_device(b.invpos, dev), b
-            with torch.cuda.stream(stream):
-                return _to_device(packed, dev), _to_device(b.invpos, dev), b
+            def step(arrays, b):
+                # packed slice + invalid positions -> one poisoned key per window
+                return encode_windows(*arrays, b.covered, k, b.rows * b.block_windows)
 
-        with _Feed(flat, stage, cfg.feed_depth) as staged:
-            for packed, invpos, batch in staged:
-                batch_windows = batch.rows * batch.block_windows
+            def rows_and_windows(b):
+                return b.rows, b.covered
+        else:  # dense: too many invalid bases, or a geometry flat cannot hold
+            batches = pack_buffer_2bit(
+                streams.codes, qual_stream, k, thr, cfg.block_windows, cfg.batch_rows
+            )
+
+            def stage(b):  # padding rows are all-bad (0xFF badbits)
+                return to_device(b.packed2, b.badbits), b
+
+            def step(arrays, b):
+                # haloed 2-bit rows + invalid bitmask -> one poisoned key per window
+                return encode_dense(*arrays, k, b.block_windows)
+
+            def rows_and_windows(b):
+                return b.packed2.shape[0], b.n_windows
+
+        with _Feed(batches, stage, cfg.feed_depth) as staged:
+            for arrays, batch in staged:
+                rows, windows = rows_and_windows(batch)
+                batch_windows = rows * batch.block_windows
                 if table.windows_this_epoch + batch_windows >= table_mod.EPOCH_WINDOW_LIMIT:
                     epochs.append(table.finalize())  # int32 count headroom
-                with span("encode_count_batch", rows=batch.rows):
-                    # the flat step: packed slice -> one poisoned key per window
-                    keys = encode_windows(packed, invpos, batch.covered, k, batch_windows)
-                    table.add(keys, batch_windows)
-                on_windows(batch.covered)
+                with span("encode_count_batch", rows=rows):
+                    table.add(step(arrays, batch), batch_windows)
+                on_windows(windows)
 
     @staticmethod
     def _merge_epochs(epochs, k) -> PackedCounts:

@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels under ``krust_tpu_torch/csrc``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, at first use, into ``krust_tpu_torch/_build/``
-(keyed by a hash of the sources, so an edit rebuilds and an unchanged
-checkout reuses the build). The library is loaded with ``ctypes``; every
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per source,
+all started together) and links them into one shared library with a plain
+C interface, at first use, into ``krust_tpu_torch/_build/`` (keyed by a
+hash of the sources, so an edit rebuilds and an unchanged checkout reuses
+the build). The library is loaded with ``ctypes``; every
 pointer argument is declared ``c_void_p``. Nothing here runs at import
 time: the CPU-only test lane imports every module without ``nvcc``.
 """
@@ -16,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -32,7 +34,7 @@ build_seconds = 0.0
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -46,6 +48,9 @@ _SIGNATURES = {
     "krust_rle_i64": [_INT, _P, _P, _I64, _P, _P, _P, _P, _P, _P],
     "krust_merge_i32": [_INT, _P, _P, _I64, _P, _P, _I64, _P, _P, _P],
     "krust_merge_i64": [_INT, _P, _P, _I64, _P, _P, _I64, _P, _P, _P],
+    "krust_merge_keys_u32": [_INT, _P, _P, _I64, _P, _P],
+    "krust_encode_dense_i32": [_INT, _P, _P, _I64, _I64, _I64, _INT, _I64, _P, _P],
+    "krust_encode_dense_i64": [_INT, _P, _P, _I64, _I64, _I64, _INT, _I64, _P, _P],
 }
 
 
@@ -84,15 +89,32 @@ def _build() -> str:
     if os.path.exists(lib_path):
         build_seconds = 0.0
         return lib_path
-    tmp = f"{lib_path}.tmp{os.getpid()}"
     start = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-        capture_output=True,
-        text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=_BUILD) as obj_dir:
+        objs = [
+            os.path.join(obj_dir, os.path.basename(src) + ".o") for src in _sources()
+        ]
+        procs = [
+            subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-c", src, "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for src, obj in zip(_sources(), objs)
+        ]
+        errors = []
+        for src, proc in zip(_sources(), procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{os.path.basename(src)} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        tmp = f"{lib_path}.tmp{os.getpid()}"
+        link = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
     os.replace(tmp, lib_path)
     build_seconds = time.perf_counter() - start
     return lib_path

@@ -39,21 +39,24 @@ def unpack_2bit(packed: torch.Tensor, n_bases: int) -> torch.Tensor:
 def window_keys_plain(
     bases: torch.Tensor, bad: torch.Tensor, k: int, n_windows: int
 ) -> torch.Tensor:
-    """Canonical keys of the first ``n_windows`` windows.
+    """Canonical keys of the first ``n_windows`` windows along the last axis.
 
-    ``bases`` int64 [>= n_windows + k - 1] codes 0..3, ``bad`` bool of the
-    same shape. A window holding a bad base gets the sentinel key. An int64
-    k-step shift/or over all windows; int64 arithmetic throughout (CPU
-    torch has no ``<<`` or ``minimum`` on unsigned dtypes).
+    ``bases`` int64 [..., >= n_windows + k - 1] codes 0..3, ``bad`` bool of
+    the same shape; leading axes (the rows of a dense batch) are
+    independent. A window holding a bad base gets the sentinel key. An
+    int64 k-step shift/or over all windows; int64 arithmetic throughout
+    (CPU torch has no ``<<`` or ``minimum`` on unsigned dtypes).
     """
-    fwd = torch.zeros(n_windows, dtype=torch.int64, device=bases.device)
+    fwd = torch.zeros(
+        bases.shape[:-1] + (n_windows,), dtype=torch.int64, device=bases.device
+    )
     rc = torch.zeros_like(fwd)
     for i in range(k):
-        b = bases[i : i + n_windows]
+        b = bases[..., i : i + n_windows]
         fwd = (fwd << 2) | b
         rc = rc | ((3 - b) << (2 * i))
-    cb = torch.nn.functional.pad(bad.to(torch.int32).cumsum(0), (1, 0))
-    poisoned = (cb[k : k + n_windows] - cb[:n_windows]) > 0
+    cb = torch.nn.functional.pad(bad.to(torch.int32).cumsum(-1), (1, 0))
+    poisoned = (cb[..., k : k + n_windows] - cb[..., :n_windows]) > 0
     dt = key_dtype(k)
     if k <= 16:  # codes < 2^32: plain int64 min, then the 2^31 bias
         keys = torch.minimum(fwd, rc) - (1 << 31)

@@ -13,7 +13,8 @@ canonical since its reverse complement is all-A — which the bias turns into
 the dtype's maximum, so sentinels sort last. The TPU engine's (hi, lo)
 uint32 lane pairs and plane-separated window order are TPU layout devices
 the port drops; :func:`parts_from_numpy` / :func:`parts_to_numpy` convert
-its compacted parts to and from this form.
+its compacted parts to and from this form, and :func:`keys_from_step`
+converts its per-window step output.
 """
 
 from __future__ import annotations
@@ -59,6 +60,23 @@ def parts_from_numpy(hi, lo, cnt, k: int, device=None):
     keys = torch.from_numpy(np.ascontiguousarray(codes_to_keys(codes, k)))
     counts = torch.from_numpy(np.asarray(cnt, np.uint32).view(np.int32).copy())
     return keys.to(device), counts.to(device)
+
+
+def keys_from_step(part, k: int) -> torch.Tensor:
+    """A ``krust_tpu`` per-window step output -> the port's keys, position
+    for position.
+
+    ``part`` is the sentinel part ``(lo,)`` (k <= 16) or ``(hi, lo)`` of
+    ``_sentinel_part``, invalid windows already (SENT, SENT), or the raw
+    ``(hi, lo, valid)``; uint32 planes (valid: any integer or bool).
+    """
+    hi, lo, valid = (None, part[0], None) if len(part) == 1 else (*part, None)[:3]
+    codes = np.asarray(lo, np.uint32).reshape(-1).astype(np.uint64)
+    if hi is not None:
+        codes |= np.asarray(hi, np.uint32).reshape(-1).astype(np.uint64) << np.uint64(32)
+    if valid is not None:
+        codes[np.asarray(valid).reshape(-1) == 0] = np.uint64(2**64 - 1)
+    return torch.from_numpy(np.ascontiguousarray(codes_to_keys(codes, k)))
 
 
 def parts_to_numpy(keys: torch.Tensor, counts: torch.Tensor, k: int):

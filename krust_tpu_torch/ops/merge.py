@@ -1,4 +1,5 @@
-"""K3: merge of two key-sorted compacted parts.
+"""K3: merge of two key-sorted compacted parts; K5: merge of two sorted
+uint32 arrays.
 
 Replaces ``krust_tpu/ops/pallas_merge.py:merge_sorted_kv`` (k > 16) and
 ``merge_sorted_lv`` (k <= 16) with one CUDA kernel templated on the key
@@ -10,8 +11,13 @@ equal keys end adjacent and no count is lost or cloned. The weighted
 Bound on the H100: the binary searches' dependent loads; one read and one
 write of both parts otherwise. A merge-path tiled merge is later work.
 
-:func:`merge_sorted` launches the kernel for CUDA tensors and runs
-:func:`merge_sorted_plain` for CPU tensors.
+K5, :func:`merge_sorted_keys`, replaces ``krust_tpu/ops/pallas_merge.py:
+merge_sorted``: the same kernel without a payload, for uint32 keys
+compared unsigned. No counting path calls it.
+
+:func:`merge_sorted` and :func:`merge_sorted_keys` launch the kernel for
+CUDA tensors and run :func:`merge_sorted_plain` /
+:func:`merge_sorted_keys_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -63,3 +69,42 @@ def merge_sorted(a_keys, a_cnt, b_keys, b_cnt):
 
 
 merge_sorted.launches = 0
+
+
+def widen_u32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 -> int64 of the same value, through an int32 view (CUDA
+    PyTorch has few kernels for uint32 itself)."""
+    return x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def merge_sorted_keys_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`merge_sorted_keys`: ``cat`` + sort,
+    in int64, where signed order is the keys' unsigned order."""
+    keys = torch.sort(torch.cat([widen_u32(a), widen_u32(b)])).values
+    return keys.to(torch.int32).view(torch.uint32)
+
+
+def merge_sorted_keys(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge two equal-length sorted uint32 arrays into one of length 2m.
+
+    ``0xFFFFFFFF`` padding is an ordinary maximal key; keys compare
+    unsigned. Unequal shapes raise ``ValueError``.
+    """
+    if a.shape != b.shape:
+        raise ValueError(f"inputs must have equal shape, got {a.shape} vs {b.shape}")
+    if a.device.type == "cpu":
+        return merge_sorted_keys_plain(a, b)
+    _cuda.require_cuda("merge_sorted_keys", a, b)
+    if a.dtype != torch.uint32 or b.dtype != torch.uint32 or a.dim() != 1:
+        raise ValueError("merge_sorted_keys: one-dimensional uint32 keys")
+    m = a.numel()
+    out = torch.empty(2 * m, dtype=torch.uint32, device=a.device)
+    err = _cuda.library().krust_merge_keys_u32(
+        a.device.index, a.data_ptr(), b.data_ptr(), m, out.data_ptr(), _cuda.stream_of(a)
+    )
+    merge_sorted_keys.launches += 1
+    _cuda.check("merge_sorted_keys", err)
+    return out
+
+
+merge_sorted_keys.launches = 0

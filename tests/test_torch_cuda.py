@@ -13,12 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from krust_tpu_torch.io.packer import pack2_full
+from krust_tpu_torch.io.packer import pack2_full, pack_buffer_2bit
 from krust_tpu_torch.io.reader import ParsedStreams
 from krust_tpu_torch.kmer import INVALID_CODE
 from krust_tpu_torch.models.engines import BatchEngine, NumpyEngine
 from krust_tpu_torch.ops.fused_codec import TAIL_BYTES, encode_windows, encode_windows_plain
-from krust_tpu_torch.ops.merge import merge_sorted, merge_sorted_plain
+from krust_tpu_torch.ops.codec import encode_dense, encode_dense_plain
+from krust_tpu_torch.ops.merge import (
+    merge_sorted, merge_sorted_keys, merge_sorted_keys_plain, merge_sorted_plain,
+)
 from krust_tpu_torch.ops.rle import rle_compact, rle_compact_plain
 from krust_tpu_torch.utils.config import EngineConfig
 
@@ -110,18 +113,71 @@ def test_engine_on_cuda_matches_numpy(dev, monkeypatch, k):
     assert all(f.launches > n for f, n in before.items())
 
 
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 15, 16, 17, 21, 24, 31, 32])
+@pytest.mark.parametrize("w", [8, 256], ids=["w8", "w256"])
+def test_dense_codec_kernel_matches_plain(dev, k, w):
+    """K4 at edge k and widths, on exact-size tensors (the last group of the
+    last row reads up to the row's end), with all-bad padding rows and a
+    last row that ends mid-byte."""
+    rng = np.random.default_rng(31 + k + w)
+    n = 13 * w + 3 + k - 1  # 14 real rows, the last with 3 windows
+    codes = rng.integers(0, 4, size=n, dtype=np.uint8)
+    codes[rng.random(n) < 0.07] = INVALID_CODE
+    if k == 32:
+        codes[: 3 * w] = 2  # canonical 32-mers with bit 63 set
+    (batch,) = pack_buffer_2bit(codes, None, k, None, w)
+    p2 = torch.from_numpy(batch.packed2).to(dev)
+    bb = torch.from_numpy(batch.badbits).to(dev)
+    got = encode_dense(p2, bb, k, w)
+    assert torch.equal(got, encode_dense_plain(p2, bb, k, w))
+
+
+@pytest.mark.parametrize("m", [0, 1, 127, 1000, 300_001])
+def test_merge_keys_kernel_matches_plain(dev, m):
+    """K5: ties, keys at or above 2^31 and sentinel tails."""
+    rng = np.random.default_rng(m)
+    pool = rng.integers(0, 1 << 32, 500, dtype=np.uint64).astype(np.uint32)
+    a = np.sort(rng.choice(pool, m))
+    b = np.sort(rng.choice(pool, m))
+    a[m - m // 4 :] = 0xFFFFFFFF
+    ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    got = merge_sorted_keys(ta, tb).view(torch.int32)  # CUDA compares no uint32
+    assert torch.equal(got, merge_sorted_keys_plain(ta, tb).view(torch.int32))
+    with pytest.raises(ValueError, match="equal shape"):
+        merge_sorted_keys(ta, torch.from_numpy(np.zeros(m + 1, np.uint32)).to(dev))
+
+
 def test_dense_input_raises_on_cuda(dev):
-    """Dirty input counts on the flat kernel path; only a geometry the flat
-    layout cannot hold raises (the dense path is ROADMAP A8)."""
+    """Dirty input, and a geometry the flat layout cannot hold, count on the
+    dense kernel path; a geometry the dense packer refuses raises."""
     rng = np.random.default_rng(4)
     codes = rng.integers(0, 4, 5000, dtype=np.uint8)
     codes[rng.random(5000) < 0.2] = INVALID_CODE
     s = ParsedStreams(codes, None, 1, 5000)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="multiple of 8"):
         BatchEngine(EngineConfig(block_windows=260, device=dev)).count(s, 11)
-    before = encode_windows.launches
-    got = BatchEngine(EngineConfig(device=dev)).count(s, 11)
     exp = NumpyEngine().count(s, 11)
+    for w in (4096, 8):
+        flat, dense = encode_windows.launches, encode_dense.launches
+        got = BatchEngine(EngineConfig(block_windows=w, device=dev)).count(s, 11)
+        np.testing.assert_array_equal(got.codes, exp.codes)
+        np.testing.assert_array_equal(got.counts, exp.counts)
+        assert encode_dense.launches > dense and encode_windows.launches == flat
+
+
+@pytest.mark.parametrize("k", [5, 16, 21, 32])
+def test_dense_engine_on_cuda_matches_numpy(dev, monkeypatch, k):
+    """The dense path with small epochs: K4, sort, RLE and merges, every
+    one launched on the card."""
+    monkeypatch.setenv("KRUST_EPOCH_ENTRIES", "4096")
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, 60_000, dtype=np.uint8)
+    codes[rng.random(60_000) < 0.08] = INVALID_CODE
+    s = ParsedStreams(codes, None, 1, 60_000)
+    before = {f: f.launches for f in (encode_dense, rle_compact, merge_sorted)}
+    cfg = EngineConfig(block_windows=256, batch_rows=8, device=dev)
+    got = BatchEngine(cfg).count(s, k)
+    exp = NumpyEngine().count(s, k)
     np.testing.assert_array_equal(got.codes, exp.codes)
     np.testing.assert_array_equal(got.counts, exp.counts)
-    assert encode_windows.launches > before
+    assert all(f.launches > n for f, n in before.items())

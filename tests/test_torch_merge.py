@@ -1,4 +1,6 @@
-"""Port merge (krust_tpu_torch.ops.merge) against merge_sorted_kv / _lv.
+"""Port merges (krust_tpu_torch.ops.merge) against the JAX merge kernels.
+
+K3 against merge_sorted_kv / _lv, K5 against merge_sorted.
 
 Compacted parts (distinct sorted keys, counts, sentinel tail) are made with
 numpy, fed to the JAX merge kernels in interpret mode (at the small merge
@@ -13,10 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from krust_tpu.ops.pallas_merge import merge_sorted as jax_merge_keys
 from krust_tpu.ops.pallas_merge import merge_sorted_kv, merge_sorted_lv
 from krust_tpu.ops.table import _merge_compact as jax_merge_compact
 from krust_tpu_torch.ops.keys import parts_from_numpy, parts_to_numpy
-from krust_tpu_torch.ops.merge import merge_sorted
+from krust_tpu_torch.ops.merge import merge_sorted, merge_sorted_keys, merge_sorted_keys_plain
 from krust_tpu_torch.ops.table import _merge_compact
 
 SENT = 0xFFFFFFFF
@@ -111,3 +114,50 @@ def test_ties_keep_a_first():
     assert k.tolist() == [3, 3, 3, 7, 7, 8]
     assert c.tolist() == [1, 2, 10, 3, 20, 30]
 
+
+
+# --- K5: keys-only uint32 merge ---------------------------------------------
+
+
+def _sorted_u32(rng, m, n_sent):
+    """m sorted uint32 keys, half of them at or above 2^31, drawn from a
+    small pool (ties inside and across arrays), n_sent sentinels last."""
+    pool = np.concatenate([
+        rng.integers(0, 1 << 31, 40, dtype=np.uint64),
+        rng.integers(1 << 31, SENT, 40, dtype=np.uint64),
+    ]).astype(np.uint32)
+    keys = np.sort(rng.choice(pool, m))
+    keys[m - n_sent :] = SENT
+    return keys
+
+
+@pytest.mark.parametrize("m", [0, 1, 127, 1000])
+def test_merge_keys_matches_pallas(m):
+    rng = np.random.default_rng(m)
+    a = _sorted_u32(rng, m, m // 5)
+    b = _sorted_u32(rng, m, m // 3)
+    exp = np.asarray(jax_merge_keys(jnp.asarray(a), jnp.asarray(b), interpret=True))
+    got = merge_sorted_keys(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.uint32 and got.shape == (2 * m,)
+    np.testing.assert_array_equal(got.numpy(), exp)
+    np.testing.assert_array_equal(
+        merge_sorted_keys_plain(torch.from_numpy(a), torch.from_numpy(b)).numpy(), exp
+    )
+
+
+def test_merge_keys_unsigned_order():
+    """Keys at or above 2^31 sort above those below (a signed compare
+    would put them first)."""
+    a = torch.tensor([5, 0x80000000, SENT], dtype=torch.uint32)
+    b = torch.tensor([0x7FFFFFFF, 0x80000000, 0xFFFFFFF0], dtype=torch.uint32)
+    got = merge_sorted_keys(a, b).to(torch.int64).tolist()
+    assert got == [5, 0x7FFFFFFF, 0x80000000, 0x80000000, 0xFFFFFFF0, SENT]
+
+
+def test_merge_keys_refuses_unequal_shapes():
+    a = np.zeros(300, np.uint32)
+    b = np.zeros(500, np.uint32)
+    with pytest.raises(ValueError, match="equal shape"):
+        jax_merge_keys(jnp.asarray(a), jnp.asarray(b), interpret=True)
+    with pytest.raises(ValueError, match="equal shape"):
+        merge_sorted_keys(torch.from_numpy(a), torch.from_numpy(b))

@@ -4,7 +4,9 @@
 plain PyTorch version) against ``krust_tpu``'s ``BatchEngine`` on XLA-CPU
 (interpret-mode kernels) and the brute-force oracle in ``tests/oracle.py``:
 the fixtures, random FASTA/FASTQ with Ns, soft-masking and ``min_quality``,
-k in {5, 16, 21, 32}, and a forced multi-epoch count. Full tables must be
+k in {5, 16, 21, 32}, and a forced multi-epoch count, on the flat path and
+on the dense path (dirty and quality-masked streams, block geometries the
+flat layout cannot hold, the 1/32 routing boundary). Full tables must be
 equal (integer work: tolerance 0). Also: the CLI as a black box, the port's
 import isolation from jax, engine selection, the feed thread, the table's
 entry limits and the key conversions.
@@ -12,6 +14,7 @@ entry limits and the key conversions.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -30,9 +33,13 @@ from krust_tpu_torch.io.format import SequenceFormat
 from krust_tpu_torch.kmer import INVALID_CODE
 from krust_tpu_torch.models import engines
 from krust_tpu_torch.models.engines import BatchEngine, NativeEngine, NumpyEngine
+from krust_tpu_torch.io import native as port_native
+from krust_tpu_torch.io import packer as port_packer
+from krust_tpu_torch.ops import codec as codec_mod
+from krust_tpu_torch.ops import fused_codec as fused_mod
 from krust_tpu_torch.ops import table as table_mod
 from krust_tpu_torch.ops.keys import (
-    codes_to_keys, keys_to_codes, parts_from_numpy, parts_to_numpy,
+    codes_to_keys, keys_to_codes, parts_from_numpy, parts_to_numpy, sentinel,
 )
 from krust_tpu_torch.utils.config import EngineConfig
 
@@ -48,14 +55,14 @@ def _clear_jax_caches():
     jax.clear_caches()
 
 
-def _port(path, k, min_quality=None, **cfg):
-    config = EngineConfig(block_windows=256, batch_rows=8, device="cpu", **cfg)
+def _port(path, k, min_quality=None, block_windows=256):
+    config = EngineConfig(block_windows=block_windows, batch_rows=8, device="cpu")
     return port_api.count_with_input(Input.from_path(path), k, min_quality=min_quality,
                                      config=config)
 
 
-def _jax(path, k, min_quality=None):
-    config = jax_config.EngineConfig(block_windows=256, batch_rows=8)
+def _jax(path, k, min_quality=None, block_windows=256):
+    config = jax_config.EngineConfig(block_windows=block_windows, batch_rows=8)
     return jax_api.count_with_input(
         jax_api.Input.from_path(path), k, min_quality=min_quality, config=config
     )
@@ -71,9 +78,9 @@ def _oracle(path, k, min_quality=None):
     return count_sequences(items, k, min_quality if use_q else None)
 
 
-def _check(path, k, min_quality=None):
-    got = _port(path, k, min_quality)
-    exp = _jax(path, k, min_quality)
+def _check(path, k, min_quality=None, block_windows=256):
+    got = _port(path, k, min_quality, block_windows)
+    exp = _jax(path, k, min_quality, block_windows)
     np.testing.assert_array_equal(got.codes, exp.codes)
     np.testing.assert_array_equal(got.counts, exp.counts)
     assert got.to_string_dict() == _oracle(path, k, min_quality)
@@ -113,8 +120,8 @@ def _write_random(path, rng, n_rec, fastq, n_rate, soft_rate, lowq_rate):
     ids=["fasta-flat", "fastq-q20-flat", "fastq-q20-dense"],
 )
 def test_random_inputs_match_jax_and_oracle(tmp_path, k, fastq, n_rate, min_quality):
-    """Sparse and dirty invalids (the JAX package sends the dirty ones down
-    its dense path; the port keeps them on the flat one)."""
+    """Sparse and dirty invalids (both packages send the dirty ones down
+    their dense path)."""
     rng = np.random.default_rng(1000 * k + int(fastq) + int(100 * n_rate))
     path = tmp_path / ("r.fq" if fastq else "r.fa")
     _write_random(path, rng, 30, fastq, n_rate, 0.1, 0.005 if n_rate < 0.05 else 0.05)
@@ -139,6 +146,135 @@ def test_multi_epoch_matches_jax(tmp_path, monkeypatch, k):
     assert len(merges) > 1
     np.testing.assert_array_equal(got.codes, exp.codes)
     np.testing.assert_array_equal(got.counts, exp.counts)
+
+
+# --- the dense path ------------------------------------------------------------
+
+
+@pytest.fixture
+def route(monkeypatch):
+    """Counts the port's step calls by route: flat (K1) and dense (K4)."""
+    calls = {"flat": 0, "dense": 0}
+    real_flat, real_dense = fused_mod.encode_windows, codec_mod.encode_dense
+
+    def flat(*a):
+        calls["flat"] += 1
+        return real_flat(*a)
+
+    def dense(*a):
+        calls["dense"] += 1
+        return real_dense(*a)
+
+    monkeypatch.setattr(fused_mod, "encode_windows", flat)
+    monkeypatch.setattr(codec_mod, "encode_dense", dense)
+    return calls
+
+
+@pytest.mark.parametrize("k", [5, 16, 21, 32])
+@pytest.mark.parametrize(
+    "fastq,n_rate,lowq_rate,min_quality",
+    [(False, 0.08, 0.0, None), (True, 0.005, 0.1, 20)],
+    ids=["fasta-dirty", "fastq-q20-lowq"],
+)
+def test_dense_inputs_match_jax_and_oracle(tmp_path, route, k, fastq, n_rate, lowq_rate,
+                                           min_quality):
+    """More than 1/32 of the bases invalid (Ns, or below Q20): the dense
+    path in both packages."""
+    rng = np.random.default_rng(300 + k + int(fastq))
+    path = tmp_path / ("r.fq" if fastq else "r.fa")
+    _write_random(path, rng, 40, fastq, n_rate, 0.1, lowq_rate)
+    _check(str(path), k, min_quality)
+    assert route["dense"] > 0 and route["flat"] == 0
+
+
+@pytest.mark.parametrize("k,block_windows", [(21, 8), (32, 8), (31, 16)])
+def test_dense_geometry_matches_jax_and_oracle(tmp_path, route, k, block_windows):
+    """block_windows < k - 1: the flat layout cannot hold the halo, so a
+    clean stream takes the dense path too."""
+    rng = np.random.default_rng(k + block_windows)
+    path = tmp_path / "r.fa"
+    _write_random(path, rng, 12, False, 0.005, 0.1, 0.0)
+    _check(str(path), k, block_windows=block_windows)
+    assert route["dense"] > 0 and route["flat"] == 0
+
+
+@pytest.mark.parametrize("k", [16, 21])
+def test_dense_multi_epoch_matches_jax(tmp_path, monkeypatch, route, k):
+    """A dirty stream with small epochs: several flushes and part merges."""
+    rng = np.random.default_rng(91 + k)
+    path = tmp_path / "r.fa"
+    _write_random(path, rng, 60, False, 0.1, 0.0, 0.0)
+    merges = []
+    real = table_mod._merge_compact
+    monkeypatch.setattr(
+        table_mod, "_merge_compact", lambda *a: merges.append(1) or real(*a)
+    )
+    monkeypatch.setenv("KRUST_EPOCH_ENTRIES", "700")
+    got = _port(str(path), k)
+    monkeypatch.delenv("KRUST_EPOCH_ENTRIES")
+    exp = _jax(str(path), k)
+    assert len(merges) > 1 and route["dense"] > 1 and route["flat"] == 0
+    np.testing.assert_array_equal(got.codes, exp.codes)
+    np.testing.assert_array_equal(got.counts, exp.counts)
+
+
+@pytest.mark.parametrize("scan", ["native", "numpy"])
+@pytest.mark.parametrize("extra", [0, 1], ids=["at-limit-flat", "one-more-dense"])
+def test_flat_dense_boundary(monkeypatch, route, scan, extra):
+    """n // 32 invalid bases stay on the flat path, one more goes dense, in
+    both packages, with the native scan and the numpy one."""
+    from krust_tpu.io.packer import flat_batches as jax_flat_batches
+
+    if scan == "numpy":
+        monkeypatch.setattr(port_native, "scan_stream_native", lambda *a: None)
+    n = 32 * 200
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    codes[rng.choice(n, n // 32 + extra, replace=False)] = INVALID_CODE
+    s = ParsedStreams(codes, None, 1, n)
+    flat = port_packer.flat_batches(codes, None, 11, None, 256, 8)
+    assert (flat is None) == bool(extra)
+    assert (jax_flat_batches(codes, None, 11, None, 256, 8) is None) == bool(extra)
+    got = BatchEngine(EngineConfig(block_windows=256, batch_rows=8, device="cpu")).count(s, 11)
+    exp = NumpyEngine().count(s, 11)
+    np.testing.assert_array_equal(got.codes, exp.codes)
+    np.testing.assert_array_equal(got.counts, exp.counts)
+    assert (route["dense"] > 0, route["flat"] > 0) == (bool(extra), not extra)
+
+
+def test_flat_batches_takes_a_prescan():
+    """``prescanned=`` replaces the scan: a dirty stream scanned at
+    max_inv = n stays flat, and its batches count it exactly."""
+    rng = np.random.default_rng(6)
+    codes = rng.integers(0, 4, 3000, dtype=np.uint8)
+    codes[rng.random(3000) < 0.2] = INVALID_CODE
+    assert port_packer.flat_batches(codes, None, 9, None, 256, 8) is None
+    scan = port_packer.flat_scan(codes, None, None, codes.shape[0])
+    batches = list(port_packer.flat_batches(codes, None, 9, None, 256, 8, prescanned=scan))
+    keys = torch.cat([
+        fused_mod.encode_windows_plain(
+            torch.from_numpy(np.concatenate([b.packed2, np.zeros(8, np.uint8)])),
+            torch.from_numpy(b.invpos), b.covered, 9, b.rows * b.block_windows,
+        )
+        for b in batches
+    ])
+    uniq, cnt = torch.unique(keys[keys != sentinel(keys.dtype)], return_counts=True)
+    exp = NumpyEngine().count(ParsedStreams(codes, None, 1, 3000), 9)
+    np.testing.assert_array_equal(keys_to_codes(uniq.numpy(), 9), exp.codes)
+    np.testing.assert_array_equal(cnt.numpy(), exp.counts)
+
+
+def test_dense_progress_totals(tmp_path):
+    rng = np.random.default_rng(12)
+    path = tmp_path / "r.fa"
+    _write_random(path, rng, 30, False, 0.1, 0.0, 0.0)
+    snaps = []
+    config = EngineConfig(block_windows=256, batch_rows=8, device="cpu")
+    port_api._count_path(str(path), 13, config=config, progress=snaps.append)
+    exp = port_api._read_streams(str(path), 13, SequenceFormat.AUTO)[1]
+    assert len(snaps) > 1
+    assert snaps[-1].sequences_processed == exp.n_records
+    assert snaps[-1].bases_processed == exp.n_bases
 
 
 def test_cli_tsv_matches_jax_cli(tmp_path, monkeypatch, capsysbinary):
@@ -188,20 +324,41 @@ def test_import_leaves_jax_out():
 
 
 def test_no_source_imports_jax_or_krust_tpu():
+    """No module imports jax or krust_tpu, and no string of the code (a
+    docstring aside) names a path into the krust_tpu directory."""
+    into_ref = re.compile(r"(^|[/\\])krust_tpu([/\\]|$)")
     for root, _, files in os.walk(PKG):
         for f in files:
             if not f.endswith(".py"):
                 continue
             tree = ast.parse(open(os.path.join(root, f)).read())
+            docs = {
+                id(n.value) for n in ast.walk(tree)
+                if isinstance(n, ast.Expr) and isinstance(n.value, ast.Constant)
+            }
             for node in ast.walk(tree):
                 names = []
                 if isinstance(node, ast.Import):
                     names = [a.name for a in node.names]
                 elif isinstance(node, ast.ImportFrom) and node.level == 0:
                     names = [node.module or ""]
+                elif (
+                    isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs
+                ):
+                    assert not into_ref.search(node.value), (f, node.value)
                 for n in names:
                     top = n.split(".")[0]
                     assert top not in ("jax", "jaxlib", "krust_tpu"), (f, n)
+
+
+def test_native_core_is_the_ports_own_copy():
+    """The port builds its own copy of the C++ core, byte-equal to the
+    JAX package's, so the two host cores stay in sync."""
+    assert os.path.dirname(port_native._SRC) == os.path.join(PKG, "io", "native")
+    ref = os.path.join(REPO, "krust_tpu", "io", "native", "krust_native.cpp")
+    with open(port_native._SRC, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
 
 
 # --- engine selection and the feed --------------------------------------------
@@ -224,20 +381,28 @@ def test_select_engine(monkeypatch):
 
 
 def test_dense_path_raises_on_cuda_device():
-    """A block geometry the flat layout cannot hold needs the dense path,
-    which is not ported (A8): the engine refuses it on every device, never
-    routing it through plain ops. Dirty input stays on the flat path."""
+    """A dirty stream, and a block geometry the flat layout cannot hold
+    (block_windows < k - 1), now count on the dense path, equal to
+    NumpyEngine and to krust_tpu; a geometry the dense packer refuses too
+    (block_windows % 8) raises in both packages."""
+    from krust_tpu.models.engines import BatchEngine as JaxBatchEngine
+
     rng = np.random.default_rng(4)
     codes = rng.integers(0, 4, 5000, dtype=np.uint8)
     codes[rng.random(5000) < 0.2] = INVALID_CODE
     s = ParsedStreams(codes, None, 1, 5000)
-    eng = BatchEngine(EngineConfig(block_windows=260, batch_rows=8, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        eng.count(s, 11)
-    got = BatchEngine(EngineConfig(block_windows=256, batch_rows=8, device="cpu")).count(s, 11)
     exp = NumpyEngine().count(s, 11)
-    np.testing.assert_array_equal(got.codes, exp.codes)
-    np.testing.assert_array_equal(got.counts, exp.counts)
+    for w in (256, 8):
+        got = BatchEngine(EngineConfig(block_windows=w, batch_rows=8, device="cpu")).count(s, 11)
+        ref = JaxBatchEngine(jax_config.EngineConfig(block_windows=w, batch_rows=8)).count(s, 11)
+        for table in (got, ref):
+            np.testing.assert_array_equal(table.codes, exp.codes)
+            np.testing.assert_array_equal(table.counts, exp.counts)
+    eng = BatchEngine(EngineConfig(block_windows=260, batch_rows=8, device="cpu"))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        eng.count(s, 11)
+    with pytest.raises(AssertionError, match="multiple of 8"):
+        JaxBatchEngine(jax_config.EngineConfig(block_windows=260, batch_rows=8)).count(s, 11)
 
 
 @pytest.mark.parametrize("depth", [0, 1, 3])

@@ -1,14 +1,16 @@
 """Where the time goes on krust_tpu_torch's main path, on one CUDA device.
 
-    python3 tools/profile_torch_main_path.py [--k 21] [--mbases 512] [--seed 0]
+    python3 tools/profile_torch_main_path.py [--k 21] [--mbases 512] [--seed 0] [--dirty]
 
 Writes chip_smoke.py's workload (250 bp reads at 32x over a 16 Mbase genome,
-numpy from --seed) as FASTA under a temp directory, counts it once to warm
-up, then prints JSON lines:
+numpy from --seed) as FASTA under a temp directory, or with ``--dirty``
+phase 7's FASTQ (about 5% of bases N or below Q20, counted at -Q 20: the
+dense path), counts it once to warm up, then prints JSON lines:
 
 - ``host_phases``: wall seconds of file read, parse, and the device count
   (``BatchEngine.count``: scan/pack, feed, enqueue, epoch flush, pull),
-  the C++ flat scan alone (part of the count), and the engine's span
+  the C++ flat scan alone or, with ``--dirty``, the dense packer
+  ``pack_buffer_2bit`` alone (part of the count), and the engine's span
   totals (host time inside each span: enqueue, not device time) — one
   unprofiled run;
 - ``device``: one run under ``torch.profiler`` (CPU + CUDA activities):
@@ -37,7 +39,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import GENOME, write_reads  # noqa: E402
 from krust_tpu_torch.io.format import SequenceFormat  # noqa: E402
-from krust_tpu_torch.io.packer import flat_scan  # noqa: E402
+from krust_tpu_torch.io.packer import flat_scan, pack_buffer_2bit  # noqa: E402
 from krust_tpu_torch.io.reader import parse_to_streams, read_input_bytes  # noqa: E402
 from krust_tpu_torch.models.engines import BatchEngine  # noqa: E402
 from krust_tpu_torch.utils import tracing  # noqa: E402
@@ -49,7 +51,10 @@ def main() -> int:
     ap.add_argument("--k", type=int, default=21)
     ap.add_argument("--mbases", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dirty", action="store_true",
+                    help="phase 7's dirty FASTQ at -Q 20 (the dense path)")
     args = ap.parse_args()
+    q = 20 if args.dirty else None
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
         return 2
@@ -59,10 +64,12 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     engine = BatchEngine(EngineConfig(device="cuda"))
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "reads.fa")
-        write_reads(path, np.random.default_rng(args.seed), args.mbases * 1_000_000, GENOME)
+        path = os.path.join(tmp, "reads.fq" if args.dirty else "reads.fa")
+        rates = dict(fastq=True, n_rate=0.02, lowq_rate=0.03) if args.dirty else {}
+        write_reads(path, np.random.default_rng(args.seed), args.mbases * 1_000_000, GENOME,
+                    **rates)
         fmt = SequenceFormat.AUTO.resolve(path)
-        engine.count(parse_to_streams(read_input_bytes(path), fmt), args.k)  # warm-up
+        engine.count(parse_to_streams(read_input_bytes(path), fmt), args.k, q)  # warm-up
 
         spans: dict[str, float] = defaultdict(float)
 
@@ -77,16 +84,22 @@ def main() -> int:
         t2 = time.perf_counter()
         tracing.add_collector(collect)
         try:
-            engine.count(streams, args.k)
+            engine.count(streams, args.k, q)
         finally:
             tracing.remove_collector(collect)
         t3 = time.perf_counter()
-        flat_scan(streams.codes, None, None, streams.codes.shape[0] // 32)
+        if args.dirty:
+            sum(1 for _ in pack_buffer_2bit(streams.codes, streams.qual, args.k, q + 33))
+            pack = "pack_buffer_2bit_s (inside count_s)"
+        else:
+            flat_scan(streams.codes, None, None, streams.codes.shape[0] // 32)
+            pack = "flat_scan_s (inside count_s)"
         t4 = time.perf_counter()
         print(json.dumps({
             "host_phases": {"read_s": t1 - t0, "parse_s": t2 - t1, "count_s": t3 - t2,
-                            "flat_scan_s (inside count_s)": t4 - t3},
-            "spans_s": dict(spans), "k": args.k, "mbases": args.mbases, "gpu": gpu,
+                            pack: t4 - t3},
+            "spans_s": dict(spans), "k": args.k, "mbases": args.mbases,
+            "dirty": args.dirty, "gpu": gpu,
         }), flush=True)
 
         from torch.profiler import ProfilerActivity, profile
@@ -94,7 +107,7 @@ def main() -> int:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            engine.count(streams, args.k)
+            engine.count(streams, args.k, q)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         # device activity: kernels and copies (not the profiler's user-
@@ -120,7 +133,7 @@ def main() -> int:
             "device": [{"name": n[:90], "ms": v[0] / 1e3, "calls": v[1]} for n, v in top],
             "device_busy_s": busy_us / 1e6, "wall_s": wall,
             "idle_share": 1 - busy_us / 1e6 / wall,
-            "k": args.k, "mbases": args.mbases, "gpu": gpu,
+            "k": args.k, "mbases": args.mbases, "dirty": args.dirty, "gpu": gpu,
         }), flush=True)
     return 0
 
