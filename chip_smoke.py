@@ -7,14 +7,16 @@ Needs a CUDA device and ``nvcc`` (the kernels build from
 Phases, printing JSON lines:
 
 1. environment: GPU name and power limit, torch / CUDA / nvcc versions,
-   kernel build time;
+   kernel build time, and each kernel's registers, shared memory and
+   spills as ptxas reported them;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    main path's shapes, exactly equal (integer work: tolerance 0), with
    kernel and plain times, the least time the card could take for the same
    work (``bound_ms``) and, where one PyTorch call computes the same
    function, that call's time (``library_ms``; never called by the port).
-   K5 lies on no counting path: its launches in the kernel line are those
-   of its timing here;
+   K1 also runs with no invalid position, and K2 on one run over every
+   tile. K5 lies on no counting path: its launches in the kernel line are
+   those of its timing here;
 3. bench.py's workload: 512 Mbases of 250 bp reads at 32x over a 16 Mbase
    genome (made with numpy from --seed), written as FASTA and counted at
    k = 21 through ``api.count_with_input`` with KRUST_ENGINE=device, twice,
@@ -143,10 +145,12 @@ def _check_codec(rng, gpu, dev, results):
     rows, w = 8192, 4096
     n_windows = rows * w
     times = {}
-    for k in (16, 21, 31, 32):
+    # 1% invalid at each key width, and none at the main path's k (the gap
+    # between the two k = 21 rows is what validity costs)
+    for k, rate in ((16, 0.01), (21, 0.01), (31, 0.01), (32, 0.01), (21, 0.0)):
         n_bases = n_windows + k - 1
         codes = rng.integers(0, 4, size=n_bases, dtype=np.uint8)
-        codes[rng.random(n_bases) < 0.01] = INVALID_CODE  # dirty stream
+        codes[rng.random(n_bases) < rate] = INVALID_CODE
         inv = np.flatnonzero(codes >= INVALID_CODE).astype(np.int32)
         packed = np.zeros(n_windows // 4 + TAIL_BYTES, np.uint8)
         p = pack2_full(codes)
@@ -155,22 +159,26 @@ def _check_codec(rng, gpu, dev, results):
         pk = torch.from_numpy(packed).to(dev)
         iv = torch.from_numpy(inv).to(dev)
         got = encode_windows(pk, iv, covered, k, n_windows)
+        torch.cuda.synchronize()
+        if not np.array_equal(iv.cpu().numpy(), inv):  # read back after the kernel
+            raise AssertionError(f"K1 k={k}: invalid positions changed on the card")
         exp = encode_windows_plain(pk, iv, covered, k, n_windows)
         torch.cuda.synchronize()
         err = _max_abs_err([(got, exp)])
         if not torch.equal(got, exp):
-            raise AssertionError(f"K1 k={k}: kernel != plain")
+            raise AssertionError(f"K1 k={k} invalid={rate}: kernel != plain")
         ms = _time_ms(lambda: encode_windows(pk, iv, covered, k, n_windows))
         plain_ms = _time_ms(lambda: encode_windows_plain(pk, iv, covered, k, n_windows), 2)
         bound = _bound(pk.numel() + 4 * iv.numel() + got.numel() * got.element_size(),
                        _codec_ops(n_windows, k))
-        times[k] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                    "library_ms": None, **bound}
+        times[k, rate] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                          "library_ms": None, **bound}
         _emit({"phase": 2, "kernel": "encode_windows", "k": k, "windows": n_windows,
-               "equal": True, **times[k], "gpu": gpu})
+               "invalid_share": rate, "invalid_positions": int(inv.shape[0]),
+               "equal": True, **times[k, rate], "gpu": gpu})
     # the main path's k; no single PyTorch call computes the poisoned keys
     results["encode_windows"] = dict(
-        times[21], max_abs_err=max(t["max_abs_err"] for t in times.values())
+        times[21, 0.01], max_abs_err=max(t["max_abs_err"] for t in times.values())
     )
 
 
@@ -196,8 +204,14 @@ def _check_rle(g, gpu, dev, results):
 
     n = 134_217_728
     timed = None
-    for dtype, weighted in ((torch.int64, False), (torch.int64, True), (torch.int32, False)):
+    # random runs (n / 16 distinct) in both key widths, weighted and not; then
+    # one run over every tile, which carries the look-back through them all
+    rows = [(torch.int64, False, "random"), (torch.int64, True, "random"),
+            (torch.int32, False, "random"), (torch.int64, False, "one_run")]
+    for dtype, weighted, stream in rows:
         keys = _sorted_keys(g, n, n // 16, dtype, dev)
+        if stream == "one_run":
+            keys[: n - n // 64] = keys[0].item()
         cnt = (
             torch.randint(1, 100, (n,), generator=g, device=dev, dtype=torch.int32)
             if weighted else None
@@ -207,7 +221,7 @@ def _check_rle(g, gpu, dev, results):
         torch.cuda.synchronize()
         err = _max_abs_err(zip(got, exp))
         if err or not all(torch.equal(a, b) for a, b in zip(got, exp)):
-            raise AssertionError(f"K2 {dtype} weighted={weighted}: kernel != plain")
+            raise AssertionError(f"K2 {dtype} weighted={weighted} {stream}: kernel != plain")
         ms = _time_ms(lambda: rle_compact(keys, cnt))
         plain_ms = _time_ms(lambda: rle_compact_plain(keys, cnt), 2)
         # unit weights: one PyTorch call computes the same runs and counts
@@ -215,12 +229,12 @@ def _check_rle(g, gpu, dev, results):
             lambda: torch.unique_consecutive(keys, return_counts=True)
         )
         ks = keys.element_size()
-        n_bytes = n * ks + (4 * n if weighted else 0) + n * (ks + 4) + 16
+        n_bytes = n * ks + (4 * n if weighted else 0) + n * (ks + 4) + 8
         row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "max_abs_err": err, **_bound(n_bytes, 12 * n)}
         _emit({"phase": 2, "kernel": "rle_compact", "keys": str(dtype), "n": n,
-               "weighted": weighted, "n_unique": int(got[2].item()), "equal": True,
-               **row, "gpu": gpu})
+               "weighted": weighted, "stream": stream, "n_unique": int(got[2].item()),
+               "equal": True, **row, "gpu": gpu})
         if timed is None:
             timed = row
         del keys, cnt, got, exp
@@ -673,19 +687,21 @@ def _phase7(rng, gpu, tmp) -> dict:
     return first
 
 
-#: per kernel wrapper: its source, the TPU kernel it replaces, and the
-#: phase whose counting run (or, for K5, timing) gives its launches
+#: per kernel wrapper: its source, the TPU kernel it replaces, the phase
+#: whose counting run (or, for K5, timing) gives its launches, and the
+#: design it was rebuilt to for the card (None: still its first port)
 _REPLACES = {
     "encode_windows": ("krust_tpu_torch/csrc/fused_codec.cu",
-                       "krust_tpu/ops/pallas_fused.py:258", 4),
-    "rle_compact": ("krust_tpu_torch/csrc/rle.cu", "krust_tpu/ops/pallas_rle.py:366", 4),
+                       "krust_tpu/ops/pallas_fused.py:258", 4, "tiled codec"),
+    "rle_compact": ("krust_tpu_torch/csrc/rle.cu", "krust_tpu/ops/pallas_rle.py:366", 4,
+                    "single-pass reduce-by-key"),
     "merge_sorted": ("krust_tpu_torch/csrc/merge.cu",
                      "krust_tpu/ops/pallas_merge.py:522 (merge_sorted_kv) and "
-                     ":414 (merge_sorted_lv)", 4),
+                     ":414 (merge_sorted_lv)", 4, None),
     "encode_dense": ("krust_tpu_torch/csrc/codec.cu",
-                     "krust_tpu/ops/pallas_codec.py:145", 7),
+                     "krust_tpu/ops/pallas_codec.py:145", 7, None),
     "merge_sorted_keys": ("krust_tpu_torch/csrc/merge.cu",
-                          "krust_tpu/ops/pallas_merge.py:248", 2),
+                          "krust_tpu/ops/pallas_merge.py:248", 2, None),
 }
 
 
@@ -714,6 +730,7 @@ def main() -> int:
     _emit({"phase": 1, "gpu": gpu, "torch": torch.__version__,
            "cuda": torch.version.cuda, "nvcc": nvcc, "python": sys.version.split()[0],
            "kernel_build_s": build_s, "nvcc_build_s": _cuda.build_seconds})
+    _emit({"phase": 1, "ptxas": _cuda.ptxas_report()})
 
     rng = np.random.default_rng(args.seed)
     g = torch.Generator(device=dev)
@@ -741,10 +758,11 @@ def main() -> int:
             launches[7] = _phase7(rng, gpu, tmp)
 
     kernels = []
-    for name, (source, replaces, phase) in _REPLACES.items():
+    for name, (source, replaces, phase, redesigned) in _REPLACES.items():
         r = results.get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches.get(phase, {}).get(name),
+                        "replaces": replaces, "redesigned": redesigned,
+                        "launches": launches.get(phase, {}).get(name),
                         "launches_phase": phase, "max_abs_err": r.get("max_abs_err"),
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),

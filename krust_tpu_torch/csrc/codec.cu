@@ -16,7 +16,7 @@
 // Bound on the H100: bytes. A row reads 0.375 B/base and writes 4 B
 // (k <= 16) or 8 B (k > 16) per window, so the write dominates; the
 // arithmetic is far below the card's integer rate. Design: one thread per
-// group of four windows of one row, as in fused_codec.cu. The TPU kernel's
+// group of four windows of one row. The TPU kernel's
 // pack-doubling (fewer vector ops on the VPU) and 128-lane padding answer
 // the TPU's layout and are not carried over. The thread loads only the
 // ceil((k + 3) / 4) packed bytes its bases [4q, 4q + k + 2] occupy and the
@@ -28,6 +28,38 @@
 #include "common.cuh"
 
 namespace {
+
+// Base t (0..35) of a group of four windows, from the group's first eight
+// packed bytes in w0 (big-endian: base 0 in the top two bits) and its
+// ninth byte in w1.
+__device__ __forceinline__ uint64_t base_at(uint64_t w0, uint32_t w1, int t) {
+  return t < 32 ? (w0 >> (62 - 2 * t)) & 3ull
+                : static_cast<uint64_t>((w1 >> (70 - 2 * t)) & 3u);
+}
+
+// Canonical codes (min of forward and reverse complement) of the four
+// windows that start at bases 0..3 of a group: the first window's codes
+// build in k steps and the next three roll in one step each.
+__device__ __forceinline__ void group_canonical(uint64_t w0, uint32_t w1, int k,
+                                                uint64_t canon[4]) {
+  const uint64_t mask = k == 32 ? ~0ull : ((1ull << (2 * k)) - 1);
+  const int top = 2 * (k - 1);
+  uint64_t fwd = 0, rc = 0;
+  for (int t = 0; t < k; ++t) {
+    const uint64_t c = base_at(w0, w1, t);
+    fwd = (fwd << 2) | c;
+    rc = (rc >> 2) | ((3ull - c) << top);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    if (r) {
+      const uint64_t c = base_at(w0, w1, k - 1 + r);
+      fwd = ((fwd << 2) | c) & mask;
+      rc = (rc >> 2) | ((3ull - c) << top);
+    }
+    canon[r] = rc < fwd ? rc : fwd;
+  }
+}
 
 template <typename Key>
 __global__ void encode_dense_kernel(const uint8_t* __restrict__ packed2,

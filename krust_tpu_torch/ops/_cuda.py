@@ -15,6 +15,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,6 +37,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
+#: compile-only: ptxas reports each kernel's registers, shared memory and
+#: spills, kept beside the library (see :func:`ptxas_report`)
+_PTXAS_FLAGS = ["-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -44,13 +48,19 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "krust_encode_windows_i32": [_INT, _P, _P, _I64, _I64, _INT, _I64, _P, _P],
     "krust_encode_windows_i64": [_INT, _P, _P, _I64, _I64, _INT, _I64, _P, _P],
-    "krust_rle_i32": [_INT, _P, _P, _I64, _P, _P, _P, _P, _P, _P],
-    "krust_rle_i64": [_INT, _P, _P, _I64, _P, _P, _P, _P, _P, _P],
+    "krust_rle_i32": [_INT, _P, _P, _I64, _P, _P, _P, _P, _P],
+    "krust_rle_i64": [_INT, _P, _P, _I64, _P, _P, _P, _P, _P],
     "krust_merge_i32": [_INT, _P, _P, _I64, _P, _P, _I64, _P, _P, _P],
     "krust_merge_i64": [_INT, _P, _P, _I64, _P, _P, _I64, _P, _P, _P],
     "krust_merge_keys_u32": [_INT, _P, _P, _I64, _P, _P],
     "krust_encode_dense_i32": [_INT, _P, _P, _I64, _I64, _I64, _INT, _I64, _P, _P],
     "krust_encode_dense_i64": [_INT, _P, _P, _I64, _I64, _I64, _INT, _I64, _P, _P],
+}
+#: tile and scratch sizes (int64 results)
+_SIZES = {
+    "krust_rle_tile": [_INT],
+    "krust_rle_scratch_bytes": [_I64, _INT],
+    "krust_encode_windows_tile": [],
 }
 
 
@@ -74,7 +84,7 @@ def _sources() -> list[str]:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + _PTXAS_FLAGS).encode())
     for path in sorted(glob.glob(os.path.join(_CSRC, "*.cu*"))):
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode())
@@ -82,10 +92,14 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _lib_path() -> str:
+    return os.path.join(_BUILD, f"libkrust_kernels_{_digest()}.so")
+
+
 def _build() -> str:
     global build_seconds
     os.makedirs(_BUILD, exist_ok=True)
-    lib_path = os.path.join(_BUILD, f"libkrust_kernels_{_digest()}.so")
+    lib_path = _lib_path()
     if os.path.exists(lib_path):
         build_seconds = 0.0
         return lib_path
@@ -96,18 +110,21 @@ def _build() -> str:
         ]
         procs = [
             subprocess.Popen(
-                [nvcc_path(), *NVCC_FLAGS, "-c", src, "-o", obj],
+                [nvcc_path(), *NVCC_FLAGS, *_PTXAS_FLAGS, "-c", src, "-o", obj],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
             for src, obj in zip(_sources(), objs)
         ]
-        errors = []
+        errors, logs = [], []
         for src, proc in zip(_sources(), procs):
             _, err = proc.communicate()
             if proc.returncode != 0:
                 errors.append(f"{os.path.basename(src)} ({proc.returncode}):\n{err}")
+            logs.append(err)
         if errors:
             raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        with open(lib_path + ".ptxas.txt", "w") as f:
+            f.write("".join(logs))
         tmp = f"{lib_path}.tmp{os.getpid()}"
         link = subprocess.run(
             [nvcc_path(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
@@ -132,12 +149,50 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
-            lib.krust_rle_tile.argtypes = []
-            lib.krust_rle_tile.restype = ctypes.c_int64
+            for name, args in _SIZES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int64
             lib.krust_cuda_error_string.argtypes = [ctypes.c_int]
             lib.krust_cuda_error_string.restype = ctypes.c_char_p
             _LIB = lib
     return _LIB
+
+
+def ptxas_report() -> list[dict]:
+    """Registers, shared memory and spill bytes of every kernel in the
+    built library, from ptxas's report at build time (demangled names when
+    the toolkit's ``cu++filt`` is there); empty if there is no report."""
+    path = _lib_path() + ".ptxas.txt"
+    if not os.path.exists(path):
+        return []
+    rows, cur = [], None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = {"kernel": m.group(1)}
+                rows.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_store_bytes"], cur["spill_load_bytes"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                cur["smem_bytes"] = int(smem.group(1)) if smem else 0
+    filt = os.path.join(os.path.dirname(nvcc_path()), "cu++filt")
+    if rows and os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(r["kernel"] for r in rows),
+                             capture_output=True, text=True)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for r, name in zip(rows, names):
+                r["kernel"] = name
+    return rows
 
 
 def check(name: str, err: int) -> None:

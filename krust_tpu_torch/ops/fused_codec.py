@@ -9,7 +9,13 @@ plane-separated order was a lane-layout device) as the biased keys of
 :mod:`krust_tpu_torch.ops.keys`.
 
 Bound on the H100: bytes — 0.25 B/base in, 4 B (k <= 16) or 8 B (k > 16)
-per window out. The kernel source says what its design does about it.
+per window out. The kernel is tiled for it: one block per 4096 windows
+loads the tile's packed bytes with 16-byte loads, finds the tile's slice of
+``invpos`` with one warp-wide search per end and sets it in a shared
+bad-base bitmask (a window is bad iff its k bits hold a 1), keys 32
+consecutive windows per thread with no serial dependency between them, and
+writes the keys out as coalesced 16-byte stores. ``csrc/fused_codec.cu``
+has the details.
 
 :func:`encode_windows` launches the CUDA kernel for CUDA tensors and runs
 :func:`encode_windows_plain`, the plain PyTorch version, for CPU tensors.
@@ -22,8 +28,8 @@ import torch
 from . import _cuda
 from .keys import key_dtype, sentinel
 
-#: bytes past n_windows / 4 the kernel reads (the ninth byte of the last
-#: four-window group)
+#: bytes past n_windows / 4 the kernel may read (the halo of the last
+#: tile's last windows)
 TAIL_BYTES = 8
 
 

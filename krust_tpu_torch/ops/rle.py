@@ -2,14 +2,15 @@
 
 Replaces ``krust_tpu/ops/pallas_rle.py:rle_compact`` (unit, weighted and
 ``one_key`` modes: the key width now carries the one-key regime). The CUDA
-kernel is ``csrc/rle.cu``: a head-flag pass, a scan of the heads written in
-the kernel (warp shuffles, per-tile sums, a one-block scan of the tiles),
-a scatter of key and weight prefix to each run's rank, and a pass that
-turns prefixes into counts. The TPU kernel's sequential-grid carry in SMEM
-has no counterpart: blocks run in parallel.
+kernel is ``csrc/rle.cu``, a single-pass reduce-by-key: one launch reads
+each key once in tiles of 16 KB, carries the open run between tiles by a
+decoupled look-back scan of (heads so far, weight since the last head),
+and writes each run's key and sum at its rank; a second launch fills the
+sentinel / zero tail past ``n_unique``. The TPU kernel's sequential-grid
+carry in SMEM has no counterpart: blocks run in parallel.
 
-Bound on the H100: bytes — the keys are read twice and the distinct keys
-written once; the per-tile scan is a few KB.
+Bound on the H100: bytes — n keys (and n weights) read once, n keys and
+n counts written once; the scratch is 16 B per tile (no n-long buffer).
 
 :func:`rle_compact` launches the kernel for CUDA tensors and runs
 :func:`rle_compact_plain` for CPU tensors.
@@ -68,21 +69,21 @@ def rle_compact(keys: torch.Tensor, cnt: torch.Tensor | None = None):
     n = keys.numel()
     dev = keys.device
     lib = _cuda.library()
-    n_tiles = max(-(-n // lib.krust_rle_tile()), 1)
     o_keys = torch.empty(n, dtype=keys.dtype, device=dev)
     o_cnt = torch.empty(n, dtype=torch.int32, device=dev)
-    wpre = torch.empty(n, dtype=torch.int64, device=dev)
-    tiles = torch.empty(2 * n_tiles, dtype=torch.int64, device=dev)
-    totals = torch.empty(2, dtype=torch.int64, device=dev)
+    n_unique = torch.empty(1, dtype=torch.int64, device=dev)
+    scratch = torch.empty(
+        lib.krust_rle_scratch_bytes(n, keys.element_size()), dtype=torch.uint8, device=dev
+    )
     fn = lib.krust_rle_i32 if keys.dtype == torch.int32 else lib.krust_rle_i64
     err = fn(
         dev.index, keys.data_ptr(), None if cnt is None else cnt.data_ptr(), n,
-        o_keys.data_ptr(), o_cnt.data_ptr(), wpre.data_ptr(),
-        tiles.data_ptr(), totals.data_ptr(), _cuda.stream_of(keys),
+        o_keys.data_ptr(), o_cnt.data_ptr(), n_unique.data_ptr(), scratch.data_ptr(),
+        _cuda.stream_of(keys),
     )
     rle_compact.launches += 1
     _cuda.check("rle_compact", err)
-    return o_keys, o_cnt, totals[:1]
+    return o_keys, o_cnt, n_unique
 
 
 rle_compact.launches = 0

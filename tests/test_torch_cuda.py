@@ -44,33 +44,87 @@ def _sorted_keys(g, n, span, dtype, dev, sentinel_share):
     return keys
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 5, 16, 17, 21, 31, 32])
-def test_codec_kernel_matches_plain(dev, k):
+def _invalid_stream(case, rng, k, n_bases, tile):
+    """Base codes of a codec case, and the windows it covers."""
+    stream = rng.integers(0, 4, size=n_bases, dtype=np.uint8)
+    n_windows = n_bases - k + 1
+    covered = n_windows - 77  # a ragged tail inside the last tile
+    if case in ("dirty", "unaligned"):
+        stream[rng.random(n_bases) < 0.01] = INVALID_CODE
+    elif case == "all_invalid":
+        stream[:] = INVALID_CODE
+    elif case == "tile_edges":  # invalid runs across each tile edge, covered at one
+        for edge in range(tile, n_bases, tile):
+            stream[max(edge - k, 0) : edge + 2] = INVALID_CODE
+        stream[tile // 2 : tile // 2 + 40] = INVALID_CODE
+        covered = 2 * tile
+    return stream, covered
+
+
+@pytest.mark.parametrize("case", ["dirty", "clean", "all_invalid", "tile_edges", "unaligned"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 15, 16, 17, 21, 31, 32])
+def test_codec_kernel_matches_plain(dev, k, case):
+    """K1 over three whole tiles and a partial one: 1% invalid bases, none,
+    every one, invalid runs across tile edges with ``covered`` at an edge,
+    and packed bytes that start off a 16-byte boundary (the byte loads)."""
+    from krust_tpu_torch.ops import _cuda
+
+    tile = _cuda.library().krust_encode_windows_tile()
     rng = np.random.default_rng(11 + k)
-    n_windows = 64 * 512
-    stream = rng.integers(0, 4, size=n_windows + k - 1, dtype=np.uint8)
-    stream[rng.random(stream.shape[0]) < 0.01] = INVALID_CODE
+    n_windows = 3 * tile + tile // 4
+    stream, covered = _invalid_stream(case, rng, k, n_windows + k - 1, tile)
     if k == 32:
         stream[:300] = 2  # canonical 32-mers with bit 63 set
     inv = np.flatnonzero(stream >= INVALID_CODE).astype(np.int32)
     invpos = np.concatenate([inv, np.full(5, stream.shape[0], np.int32)])  # padding
-    packed = np.zeros(n_windows // 4 + TAIL_BYTES, np.uint8)
+    if case == "clean":
+        invpos = inv  # no positions at all
+    skew = 1 if case == "unaligned" else 0
+    packed = np.zeros(skew + n_windows // 4 + TAIL_BYTES, np.uint8)
     p = pack2_full(stream)
-    packed[: p.shape[0]] = p
-    pk = torch.from_numpy(packed).to(dev)
+    packed[skew : skew + p.shape[0]] = p
+    pk = torch.from_numpy(packed).to(dev)[skew:]
     iv = torch.from_numpy(invpos).to(dev)
-    covered = n_windows - 77
     got = encode_windows(pk, iv, covered, k, n_windows)
     assert torch.equal(got, encode_windows_plain(pk, iv, covered, k, n_windows))
 
 
+_RLE_SIZES = {"empty": lambda t: 0, "one": lambda t: 1, "tile-1": lambda t: t - 1,
+              "tile": lambda t: t, "tile+1": lambda t: t + 1,
+              "3tiles+5": lambda t: 3 * t + 5, "300001": lambda t: 300_001}
+
+
+def _rle_stream(case, g, dtype, dev):
+    """Sorted sentinel-padded keys of an RLE case, sized from the kernel's
+    tile: random runs around one tile, a stream of sentinels only, the first
+    sentinel exactly at a tile edge, one run over three tiles."""
+    from krust_tpu_torch.ops import _cuda
+
+    tile = _cuda.library().krust_rle_tile(torch.iinfo(dtype).bits // 8)
+    if case in _RLE_SIZES:
+        return _sorted_keys(g, _RLE_SIZES[case](tile), 1000, dtype, dev, 0.2)
+    sent = torch.iinfo(dtype).max
+    if case == "all_sentinel":
+        return torch.full((3 * tile + 7,), sent, dtype=dtype, device=dev)
+    if case == "sentinel_at_tile":
+        keys = _sorted_keys(g, 3 * tile, 1000, dtype, dev, 0.0)
+        keys[2 * tile :] = sent
+        return keys
+    assert case == "run_over_3_tiles"
+    keys = _sorted_keys(g, 5 * tile, 1000, dtype, dev, 0.1)
+    keys[tile // 2 : tile // 2 + 3 * tile + 1] = keys[tile // 2].item()
+    return keys
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("weighted", [False, True], ids=["unit", "weighted"])
-@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049, 300_001])
-def test_rle_kernel_matches_plain(dev, dtype, weighted, n):
+@pytest.mark.parametrize("case", [*_RLE_SIZES, "all_sentinel", "sentinel_at_tile",
+                                  "run_over_3_tiles"])
+def test_rle_kernel_matches_plain(dev, dtype, weighted, case):
     g = torch.Generator(device=dev)
-    g.manual_seed(n)
-    keys = _sorted_keys(g, n, 1000, dtype, dev, 0.2)
+    g.manual_seed(len(case))
+    keys = _rle_stream(case, g, dtype, dev)
+    n = keys.numel()
     cnt = (
         torch.randint(1, 50, (n,), generator=g, device=dev, dtype=torch.int32)
         if weighted else None

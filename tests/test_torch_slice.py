@@ -361,6 +361,35 @@ def test_native_core_is_the_ports_own_copy():
         assert a.read() == b.read()
 
 
+def test_ptxas_report_parses_the_build_log(tmp_path, monkeypatch):
+    """The kernels' registers, shared memory and spills come from the
+    build's ptxas log, one row per entry function."""
+    from krust_tpu_torch.ops import _cuda
+
+    lib = tmp_path / "libk.so"
+    (tmp_path / "libk.so.ptxas.txt").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z3fooPi' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fooPi\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers, 38440 bytes smem\n"
+        "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3barv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 12 registers, used 0 barriers\n"
+    )
+    monkeypatch.setattr(_cuda, "_lib_path", lambda: str(lib))
+    monkeypatch.setattr(_cuda, "nvcc_path", lambda: str(tmp_path / "nvcc"))
+    assert _cuda.ptxas_report() == [
+        {"kernel": "_Z3fooPi", "spill_store_bytes": 8, "spill_load_bytes": 4,
+         "registers": 40, "smem_bytes": 38440},
+        {"kernel": "_Z3barv", "spill_store_bytes": 0, "spill_load_bytes": 0,
+         "registers": 12, "smem_bytes": 0},
+    ]
+    monkeypatch.setattr(_cuda, "_lib_path", lambda: str(tmp_path / "none.so"))
+    assert _cuda.ptxas_report() == []
+
+
 # --- engine selection and the feed --------------------------------------------
 
 
