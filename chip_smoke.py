@@ -15,8 +15,11 @@ Phases, printing JSON lines:
    work (``bound_ms``) and, where one PyTorch call computes the same
    function, that call's time (``library_ms``; never called by the port).
    K1 also runs with no invalid position, and K2 on one run over every
-   tile. K5 lies on no counting path: its launches in the kernel line are
-   those of its timing here;
+   tile. K3 runs on two random parts of 2^24 entries and on two parts
+   shaped like phase 4's merge (2^26 entries each, about 46M distinct keys
+   that both parts share, sentinel tails), in both key widths; the kernel
+   line takes the int64 shared row. K5 lies on no counting path: its
+   launches in the kernel line are those of its timing here;
 3. bench.py's workload: 512 Mbases of 250 bp reads at 32x over a 16 Mbase
    genome (made with numpy from --seed), written as FASTA and counted at
    k = 21 through ``api.count_with_input`` with KRUST_ENGINE=device, twice,
@@ -114,10 +117,10 @@ def _codec_ops(n_windows: int, k: int) -> float:
     return n_windows / 4 * (8 * (k + 3) + 16)
 
 
-def _search_ops(n_entries: int, other: int) -> float:
-    """Integer operations of the rank-scatter merge: a binary search of
-    log2(other) + 1 steps of about 4 operations per entry."""
-    return n_entries * 4 * (max(other, 1).bit_length() + 1)
+def _merge_ops(n_out: int) -> float:
+    """Integer operations of a merge, whatever implements it: one compare
+    and one select per output entry."""
+    return 2 * n_out
 
 
 def _max_abs_err(pairs) -> int:
@@ -241,6 +244,30 @@ def _check_rle(g, gpu, dev, results):
     results["rle_compact"] = timed
 
 
+def _shared_parts(g, dtype, dev):
+    """Two compacted parts shaped like phase 4's merge: 2^26 entries each
+    (round_pow2 of about 46M distinct keys), part a the whole sorted pool,
+    part b about 99.7% of it (two epochs over one genome), counts 1-500,
+    sentinel tails with count 0."""
+    import torch
+
+    m = 1 << 26
+    lo = torch.iinfo(dtype).min
+    span = 2**32 - 1 if dtype == torch.int32 else 2**42
+    pool = torch.unique(torch.randint(lo, lo + span, (46_000_000,), generator=g, device=dev,
+                                      dtype=dtype))
+    keep = torch.rand(pool.numel(), generator=g, device=dev) < 0.997
+    parts = []
+    for keys in (pool, pool[keep]):
+        n = keys.numel()
+        pk = torch.full((m,), torch.iinfo(dtype).max, dtype=dtype, device=dev)
+        pk[:n] = keys
+        pc = torch.zeros(m, dtype=torch.int32, device=dev)
+        pc[:n] = torch.randint(1, 501, (n,), generator=g, device=dev, dtype=torch.int32)
+        parts += [pk, pc]
+    return parts
+
+
 def _check_merge(g, gpu, dev, results):
     import torch
 
@@ -248,31 +275,35 @@ def _check_merge(g, gpu, dev, results):
     from krust_tpu_torch.ops.rle import rle_compact_plain
 
     m = 1 << 24
-    timed = None
-    for dtype in (torch.int64, torch.int32):
-        parts = []
-        for _ in range(2):
-            keys = _sorted_keys(g, m, m // 2, dtype, dev)
-            ck, cc, _ = rle_compact_plain(keys)  # a compacted part: unique + tail
-            parts += [ck, cc]
-        got = merge_sorted(*parts)
-        exp = merge_sorted_plain(*parts)
-        torch.cuda.synchronize()
-        err = _max_abs_err(zip(got, exp))
-        if err or not all(torch.equal(a, b) for a, b in zip(got, exp)):
-            raise AssertionError(f"K3 {dtype}: kernel != plain")
-        ms = _time_ms(lambda: merge_sorted(*parts))
-        plain_ms = _time_ms(lambda: merge_sorted_plain(*parts), 2)
-        ma, mb = parts[0].numel(), parts[2].numel()
-        n_bytes = 2 * (ma + mb) * (parts[0].element_size() + 4)
-        # no single PyTorch call merges a payload along with the keys
-        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "max_abs_err": err,
-               **_bound(n_bytes, _search_ops(ma, mb) + _search_ops(mb, ma))}
-        _emit({"phase": 2, "kernel": "merge_sorted", "keys": str(dtype),
-               "entries": [ma, mb], "equal": True, **row, "gpu": gpu})
-        if timed is None:
-            timed = row
-    results["merge_sorted"] = timed
+    for shape in ("random", "shared"):
+        for dtype in (torch.int64, torch.int32):
+            if shape == "random":
+                parts = []
+                for _ in range(2):
+                    keys = _sorted_keys(g, m, m // 2, dtype, dev)
+                    ck, cc, _ = rle_compact_plain(keys)  # a compacted part: unique + tail
+                    parts += [ck, cc]
+            else:
+                parts = _shared_parts(g, dtype, dev)
+            got = merge_sorted(*parts)
+            exp = merge_sorted_plain(*parts)
+            torch.cuda.synchronize()
+            err = _max_abs_err(zip(got, exp))
+            if err or not all(torch.equal(a, b) for a, b in zip(got, exp)):
+                raise AssertionError(f"K3 {dtype} {shape}: kernel != plain")
+            del got, exp
+            ms = _time_ms(lambda: merge_sorted(*parts))
+            plain_ms = _time_ms(lambda: merge_sorted_plain(*parts), 2)
+            ma, mb = parts[0].numel(), parts[2].numel()
+            n_bytes = 2 * (ma + mb) * (parts[0].element_size() + 4)
+            # no single PyTorch call merges a payload along with the keys
+            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "max_abs_err": err,
+                   **_bound(n_bytes, _merge_ops(ma + mb))}
+            _emit({"phase": 2, "kernel": "merge_sorted", "keys": str(dtype), "parts": shape,
+                   "entries": [ma, mb], "equal": True, **row, "gpu": gpu})
+            if shape == "shared" and dtype == torch.int64:
+                results["merge_sorted"] = row  # the main path's merge at k = 21
+            del parts
 
 
 def _check_dense(rng, gpu, dev, results):
@@ -353,7 +384,7 @@ def _check_merge_keys(rng, gpu, dev, results):
     library_ms = _time_ms(lambda: torch.sort(cat))
     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "library_call": library_call, "max_abs_err": err, "launches": launches,
-           **_bound(4 * 4 * m, 2 * _search_ops(m, m))}
+           **_bound(4 * 4 * m, _merge_ops(2 * m))}
     _emit({"phase": 2, "kernel": "merge_sorted_keys", "entries": [m, m], "equal": True,
            **row, "gpu": gpu})
     results["merge_sorted_keys"] = row
@@ -697,11 +728,11 @@ _REPLACES = {
                     "single-pass reduce-by-key"),
     "merge_sorted": ("krust_tpu_torch/csrc/merge.cu",
                      "krust_tpu/ops/pallas_merge.py:522 (merge_sorted_kv) and "
-                     ":414 (merge_sorted_lv)", 4, None),
+                     ":414 (merge_sorted_lv)", 4, "merge-path tiled merge"),
     "encode_dense": ("krust_tpu_torch/csrc/codec.cu",
                      "krust_tpu/ops/pallas_codec.py:145", 7, None),
     "merge_sorted_keys": ("krust_tpu_torch/csrc/merge.cu",
-                          "krust_tpu/ops/pallas_merge.py:248", 2, None),
+                          "krust_tpu/ops/pallas_merge.py:248", 2, "merge-path tiled merge"),
 }
 
 

@@ -50,9 +50,9 @@ _SIGNATURES = {
     "krust_encode_windows_i64": [_INT, _P, _P, _I64, _I64, _INT, _I64, _P, _P],
     "krust_rle_i32": [_INT, _P, _P, _I64, _P, _P, _P, _P, _P],
     "krust_rle_i64": [_INT, _P, _P, _I64, _P, _P, _P, _P, _P],
-    "krust_merge_i32": [_INT, _P, _P, _I64, _P, _P, _I64, _P, _P, _P],
-    "krust_merge_i64": [_INT, _P, _P, _I64, _P, _P, _I64, _P, _P, _P],
-    "krust_merge_keys_u32": [_INT, _P, _P, _I64, _P, _P],
+    "krust_merge_i32": [_INT, _P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P],
+    "krust_merge_i64": [_INT, _P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P],
+    "krust_merge_keys_u32": [_INT, _P, _P, _I64, _P, _P, _P],
     "krust_encode_dense_i32": [_INT, _P, _P, _I64, _I64, _I64, _INT, _I64, _P, _P],
     "krust_encode_dense_i64": [_INT, _P, _P, _I64, _I64, _I64, _INT, _I64, _P, _P],
 }
@@ -61,6 +61,7 @@ _SIZES = {
     "krust_rle_tile": [_INT],
     "krust_rle_scratch_bytes": [_I64, _INT],
     "krust_encode_windows_tile": [],
+    "krust_merge_tile": [_INT],
 }
 
 

@@ -1,23 +1,28 @@
 """K3: merge of two key-sorted compacted parts; K5: merge of two sorted
 uint32 arrays.
 
-Replaces ``krust_tpu/ops/pallas_merge.py:merge_sorted_kv`` (k > 16) and
-``merge_sorted_lv`` (k <= 16) with one CUDA kernel templated on the key
-width, ``csrc/merge.cu``: a rank-scatter merge (each entry's slot is its
-index plus its rank in the other part), stable with a-before-b ties, so
-equal keys end adjacent and no count is lost or cloned. The weighted
+Replaces ``krust_tpu/ops/pallas_merge.py:522 merge_sorted_kv`` (k > 16),
+``:414 merge_sorted_lv`` (k <= 16) and ``:248 merge_sorted`` (K5, keys
+only) with one CUDA template, ``csrc/merge.cu``, instantiated for int64,
+int32 and unsigned uint32 keys: a merge-path tiled merge. A small launch
+splits the output into tiles along merge-path diagonals (one binary search
+per tile edge); then one block per tile stages its slices of both parts in
+shared memory, each thread merges a few entries serially, and the block
+writes the tile coalesced. Ties go to ``a`` and each side keeps its order,
+so the result is the stable merge of ``cat(a, b)``: equal keys end
+adjacent and no count is lost or cloned. The weighted
 :func:`krust_tpu_torch.ops.rle.rle_compact` then sums them.
 
-Bound on the H100: the binary searches' dependent loads; one read and one
-write of both parts otherwise. A merge-path tiled merge is later work.
+Bound on the H100: bytes, one read and one write of both parts; the design
+reads each key from device memory once (the splits are 8 B per tile).
 
-K5, :func:`merge_sorted_keys`, replaces ``krust_tpu/ops/pallas_merge.py:
-merge_sorted``: the same kernel without a payload, for uint32 keys
-compared unsigned. No counting path calls it.
+K5, :func:`merge_sorted_keys`, is the instantiation without a payload, for
+uint32 keys compared unsigned. No counting path calls it.
 
-:func:`merge_sorted` and :func:`merge_sorted_keys` launch the kernel for
-CUDA tensors and run :func:`merge_sorted_plain` /
-:func:`merge_sorted_keys_plain` for CPU tensors.
+:func:`merge_sorted` and :func:`merge_sorted_keys` launch the kernels for
+CUDA tensors (both launches count as one on the wrapper's counter) and run
+:func:`merge_sorted_plain` / :func:`merge_sorted_keys_plain` for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -25,6 +30,12 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+
+
+def _splits(lib, total: int, keys: torch.Tensor) -> torch.Tensor:
+    """The merge-path splits: one int64 per tile edge of the output."""
+    tile = lib.krust_merge_tile(keys.element_size())
+    return torch.empty(-(-total // tile) + 1, dtype=torch.int64, device=keys.device)
 
 
 def merge_sorted_plain(a_keys, a_cnt, b_keys, b_cnt):
@@ -58,10 +69,12 @@ def merge_sorted(a_keys, a_cnt, b_keys, b_cnt):
     out_cnt = torch.empty(ma + mb, dtype=torch.int32, device=a_keys.device)
     lib = _cuda.library()
     fn = lib.krust_merge_i32 if a_keys.dtype == torch.int32 else lib.krust_merge_i64
+    splits = _splits(lib, ma + mb, a_keys)
     err = fn(
         a_keys.device.index, a_keys.data_ptr(), a_cnt.data_ptr(), ma,
         b_keys.data_ptr(), b_cnt.data_ptr(), mb,
-        out_keys.data_ptr(), out_cnt.data_ptr(), _cuda.stream_of(a_keys),
+        out_keys.data_ptr(), out_cnt.data_ptr(), splits.data_ptr(),
+        _cuda.stream_of(a_keys),
     )
     merge_sorted.launches += 1
     _cuda.check("merge_sorted", err)
@@ -99,8 +112,11 @@ def merge_sorted_keys(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError("merge_sorted_keys: one-dimensional uint32 keys")
     m = a.numel()
     out = torch.empty(2 * m, dtype=torch.uint32, device=a.device)
-    err = _cuda.library().krust_merge_keys_u32(
-        a.device.index, a.data_ptr(), b.data_ptr(), m, out.data_ptr(), _cuda.stream_of(a)
+    lib = _cuda.library()
+    splits = _splits(lib, 2 * m, a)
+    err = lib.krust_merge_keys_u32(
+        a.device.index, a.data_ptr(), b.data_ptr(), m, out.data_ptr(), splits.data_ptr(),
+        _cuda.stream_of(a),
     )
     merge_sorted_keys.launches += 1
     _cuda.check("merge_sorted_keys", err)

@@ -133,19 +133,80 @@ def test_rle_kernel_matches_plain(dev, dtype, weighted, case):
         assert torch.equal(a, b)
 
 
+def _merge_tile(key_bytes):
+    from krust_tpu_torch.ops import _cuda
+
+    return _cuda.library().krust_merge_tile(key_bytes)
+
+
+#: part lengths relative to the kernel's tile t, around its edges
+_MERGE_SIZES = {"1-0": lambda t: (1, 0), "0-5": lambda t: (0, 5),
+                "1000-3": lambda t: (1000, 3), "70000-130001": lambda t: (70_000, 130_001),
+                "1-tile": lambda t: (1, t), "tile-1": lambda t: (t - 1, t + 1),
+                "tile": lambda t: (t, t), "tile+1": lambda t: (t + 1, t - 1),
+                "3tiles+1": lambda t: (3 * t + 1, 2 * t)}
+_MERGE_CASES = [*_MERGE_SIZES, "b_in_a", "all_equal", "a_below_b", "b_below_a",
+                "sentinel_tiles", "biased_ends"]
+
+
+def _sorted_np(rng, n, lo, hi, dtype):
+    return np.sort(rng.integers(lo, hi, n, dtype=np.int64, endpoint=True)).astype(dtype)
+
+
+def _merge_parts(case, rng, dtype):
+    """Two sorted key arrays of a merge case, sized from the kernel's tile:
+    random parts around tile edges; b's keys all in a (the main path's
+    case); every key equal, so every diagonal lands on a tie; one part
+    wholly below the other; sentinel tails over whole tiles; keys at both
+    ends of the biased range (k = 32 codes with bit 63 set, k = 16 codes
+    with bit 31 set) next to the sentinel."""
+    np_dtype = np.int32 if dtype == torch.int32 else np.int64
+    info = np.iinfo(np_dtype)
+    t = _merge_tile(info.bits // 8)
+    if case in _MERGE_SIZES:
+        ma, mb = _MERGE_SIZES[case](t)
+        parts = [_sorted_np(rng, m, info.min, info.min + 5000, np_dtype) for m in (ma, mb)]
+        for p in parts:
+            p[len(p) - len(p) // 4 :] = info.max
+        return parts
+    if case == "b_in_a":
+        a = np.unique(rng.integers(info.min, info.min + 2**30, 3 * t + 77)).astype(np_dtype)
+        b = np.sort(a[rng.random(a.size) < 0.997])
+        return a, b
+    if case == "all_equal":
+        return np.full(2 * t + 3, 12345, np_dtype), np.full(3 * t - 1, 12345, np_dtype)
+    if case in ("a_below_b", "b_below_a"):
+        lo = _sorted_np(rng, 2 * t + 5, info.min, -1, np_dtype)
+        hi = _sorted_np(rng, 3 * t - 9, 0, info.max - 1, np_dtype)
+        return (lo, hi) if case == "a_below_b" else (hi, lo)
+    if case == "sentinel_tiles":
+        a = _sorted_np(rng, 4 * t, info.min, info.min + 5000, np_dtype)
+        b = _sorted_np(rng, 3 * t + 1, info.min, info.min + 5000, np_dtype)
+        a[t // 2 :] = info.max
+        b[t:] = info.max
+        return a, b
+    assert case == "biased_ends"
+    a = _sorted_np(rng, 2 * t + 11, info.min, info.max - 1, np_dtype)
+    b = _sorted_np(rng, t + 7, info.min, info.max - 1, np_dtype)
+    a[:3] = info.min
+    b[:2] = info.min
+    a[-5:-2] = info.max - 1
+    a[-2:] = info.max
+    b[-1] = info.max - 1
+    return a, b
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
-@pytest.mark.parametrize("ma,mb", [(1, 0), (0, 5), (1000, 3), (70_000, 130_001)])
-def test_merge_kernel_matches_plain(dev, dtype, ma, mb):
-    g = torch.Generator(device=dev)
-    g.manual_seed(ma + mb)
-
-    def part(m):
-        keys = _sorted_keys(g, m, 5000, dtype, dev, 0.25)
-        return keys, torch.randint(0, 9, (m,), generator=g, device=dev, dtype=torch.int32)
-
-    a, b = part(ma), part(mb)
-    got = merge_sorted(*a, *b)
-    exp = merge_sorted_plain(*a, *b)
+@pytest.mark.parametrize("case", _MERGE_CASES)
+def test_merge_kernel_matches_plain(dev, dtype, case):
+    """K3 at the partition's hard cases: equal to the stable merge of
+    cat(a, b), counts following their keys."""
+    rng = np.random.default_rng(len(case))
+    a, b = (torch.from_numpy(x).to(dev) for x in _merge_parts(case, rng, dtype))
+    ac, bc = (torch.from_numpy(rng.integers(0, 500, x.numel(), dtype=np.int32)).to(dev)
+              for x in (a, b))
+    got = merge_sorted(a, ac, b, bc)
+    exp = merge_sorted_plain(a, ac, b, bc)
     assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
 
 
@@ -186,14 +247,47 @@ def test_dense_codec_kernel_matches_plain(dev, k, w):
     assert torch.equal(got, encode_dense_plain(p2, bb, k, w))
 
 
-@pytest.mark.parametrize("m", [0, 1, 127, 1000, 300_001])
-def test_merge_keys_kernel_matches_plain(dev, m):
-    """K5: ties, keys at or above 2^31 and sentinel tails."""
-    rng = np.random.default_rng(m)
-    pool = rng.integers(0, 1 << 32, 500, dtype=np.uint64).astype(np.uint32)
-    a = np.sort(rng.choice(pool, m))
-    b = np.sort(rng.choice(pool, m))
-    a[m - m // 4 :] = 0xFFFFFFFF
+_MERGE_KEYS_CASES = ["0", "1", "127", "1000", "300001", "tile-1", "tile", "tile+1",
+                     "3tiles+1", "b_in_a", "all_equal", "a_below_b", "b_below_a",
+                     "high_half"]
+
+
+def _merge_keys_parts(case, rng):
+    """Two sorted uint32 arrays of one length m: ties inside and across
+    them, keys at or above 2^31, sentinel tails (0xFFFFFFFF)."""
+    t = _merge_tile(4)
+    sizes = {"tile-1": t - 1, "tile": t, "tile+1": t + 1, "3tiles+1": 3 * t + 1}
+    if case.isdigit() or case in sizes:
+        m = int(case) if case.isdigit() else sizes[case]
+        pool = rng.integers(0, 1 << 32, 500, dtype=np.uint64).astype(np.uint32)
+        a = np.sort(rng.choice(pool, m))
+        b = np.sort(rng.choice(pool, m))
+        a[m - m // 4 :] = 0xFFFFFFFF
+        return a, b
+    m = 2 * t + 13
+    if case == "b_in_a":
+        a = np.sort(rng.integers(0, 1 << 32, m, dtype=np.uint64)).astype(np.uint32)
+        return a, np.sort(a[rng.integers(0, m, m)])
+    if case == "all_equal":
+        return np.full(m, 0x80000000, np.uint32), np.full(m, 0x80000000, np.uint32)
+    if case in ("a_below_b", "b_below_a"):
+        lo = np.sort(rng.integers(0, 1 << 31, m, dtype=np.uint64)).astype(np.uint32)
+        hi = np.sort(rng.integers(1 << 31, 1 << 32, m, dtype=np.uint64)).astype(np.uint32)
+        return (lo, hi) if case == "a_below_b" else (hi, lo)
+    assert case == "high_half"  # every key at or above 2^31, both ends of it
+    a, b = (np.sort(rng.integers(1 << 31, 1 << 32, m, dtype=np.uint64)).astype(np.uint32)
+            for _ in range(2))
+    a[:2] = 0x80000000
+    a[-3:] = 0xFFFFFFFF
+    b[-1] = 0xFFFFFFFE
+    return a, b
+
+
+@pytest.mark.parametrize("case", _MERGE_KEYS_CASES)
+def test_merge_keys_kernel_matches_plain(dev, case):
+    """K5: ties, keys at or above 2^31, sentinel tails and tile edges."""
+    a, b = _merge_keys_parts(case, np.random.default_rng(len(case)))
+    m = a.shape[0]
     ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
     got = merge_sorted_keys(ta, tb).view(torch.int32)  # CUDA compares no uint32
     assert torch.equal(got, merge_sorted_keys_plain(ta, tb).view(torch.int32))

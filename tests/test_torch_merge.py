@@ -31,10 +31,10 @@ def _clear_jax_caches():
     jax.clear_caches()
 
 
-def _part(rng, pool, m, n_real):
-    """A compacted part of length m: n_real distinct keys from ``pool``,
-    then the sentinel tail with zero counts."""
-    codes = np.sort(rng.choice(pool, n_real, replace=False))
+def _part(rng, codes, m):
+    """A compacted part of length m: the sorted distinct ``codes``, then
+    the sentinel tail with zero counts."""
+    n_real = codes.size
     hi = np.full(m, SENT, np.uint32)
     lo = np.full(m, SENT, np.uint32)
     cnt = np.zeros(m, np.uint32)
@@ -44,32 +44,57 @@ def _part(rng, pool, m, n_real):
     return hi, lo, cnt
 
 
-def _parts(seed, k, ma, na, mb, nb):
+def _parts(seed, k, ma, na, mb, nb, kind="shared"):
+    """Two compacted parts of ``kind``: drawn from one shared pool (many
+    keys in both), every key of b also in a (the main path's case, two
+    epochs over one genome), or a's keys all below b's."""
     rng = np.random.default_rng(seed)
     bits = 2 * k
-    # a shared pool: many keys land in both parts
     pool = np.unique(rng.integers(0, 1 << bits, 3 * max(na, nb) + 10, dtype=np.uint64))
-    if k <= 16:
-        pool = pool[pool < SENT]
-    return _part(rng, pool, ma, min(na, pool.size)), _part(rng, pool, mb, min(nb, pool.size))
+    pool = pool[pool < (1 << bits) - 1]  # the all-ones code is the sentinel
+
+    def pick(keys, n):
+        return np.sort(rng.choice(keys, min(n, keys.size), replace=False))
+
+    if kind == "shared":
+        a, b = pick(pool, na), pick(pool, nb)
+    elif kind == "b_in_a":
+        a = pick(pool, na)
+        b = pick(a, nb)
+    else:
+        assert kind == "a_below_b"
+        a, b = pick(pool[: pool.size // 2], na), pick(pool[pool.size // 2 :], nb)
+    return _part(rng, a, ma), _part(rng, b, mb)
 
 
-# one pair of part lengths (one interpret-mode compile per k), unequal;
-# the real entries range from almost all to almost none
-CASES = [(3000, 2500, 1700, 1600), (3000, 1, 1700, 1700), (3000, 5, 1700, 5)]
+def _id(case):
+    ma, na, mb, nb, kind = case
+    return f"{ma}-{na}-{mb}-{nb}" + ("" if kind == "shared" else f"-{kind}")
 
 
-@pytest.mark.parametrize("k", [16, 31])
-@pytest.mark.parametrize("ma,na,mb,nb", CASES)
-def test_merge_matches_pallas(k, ma, na, mb, nb):
-    (ah, al, ac), (bh, bl, bc) = _parts(ma + mb + k, k, ma, na, mb, nb)
+# one pair of part lengths (one interpret-mode compile per key width),
+# unequal; the real entries range from almost all to almost none; b's keys
+# all in a, and a wholly below b
+CASES = [(3000, 2500, 1700, 1600, "shared"), (3000, 1, 1700, 1700, "shared"),
+         (3000, 5, 1700, 5, "shared"), (3000, 2500, 1700, 1600, "b_in_a"),
+         (3000, 2500, 1700, 1600, "a_below_b")]
+#: k = 32: codes with bit 63 set, at both ends of the biased int64 range
+KS = [16, 31, 32]
+
+
+def _jax_merge(k, ah, al, ac, bh, bl, bc):
     if k <= 16:
         e_l, e_c = merge_sorted_lv(*map(jnp.asarray, (al, ac, bl, bc)), interpret=True)
-        e_h = np.where(np.asarray(e_l) == SENT, SENT, 0)
-    else:
-        e_h, e_l, e_c = merge_sorted_kv(
-            *map(jnp.asarray, (ah, al, ac, bh, bl, bc)), interpret=True
-        )
+        return np.where(np.asarray(e_l) == SENT, SENT, 0), e_l, e_c
+    return merge_sorted_kv(*map(jnp.asarray, (ah, al, ac, bh, bl, bc)), interpret=True)
+
+
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("case", CASES, ids=_id)
+def test_merge_matches_pallas(k, case):
+    ma, na, mb, nb, kind = case
+    (ah, al, ac), (bh, bl, bc) = _parts(ma + mb + k, k, ma, na, mb, nb, kind)
+    e_h, e_l, e_c = _jax_merge(k, ah, al, ac, bh, bl, bc)
     got = merge_sorted(*parts_from_numpy(ah, al, ac, k), *parts_from_numpy(bh, bl, bc, k))
     g_h, g_l, g_c = parts_to_numpy(*got, k)
     np.testing.assert_array_equal(g_l, np.asarray(e_l))
@@ -77,22 +102,31 @@ def test_merge_matches_pallas(k, ma, na, mb, nb):
     np.testing.assert_array_equal(g_h, np.asarray(e_h))
 
 
-@pytest.mark.parametrize("k", [16, 31])
-def test_merge_compact_matches_jax(k):
-    """Merge + weighted re-compaction of two parts: the table step of a
-    multi-epoch count."""
-    (ah, al, ac), (bh, bl, bc) = _parts(99 + k, k, 3000, 2900, 1700, 1400)
-    a = tuple(map(jnp.asarray, (ah, al, ac)))
-    b = tuple(map(jnp.asarray, (bh, bl, bc)))
+def _check_merge_compact(k, a_planes, b_planes):
+    a = tuple(map(jnp.asarray, a_planes))
+    b = tuple(map(jnp.asarray, b_planes))
     e_h, e_l, e_c, e_n = jax_merge_compact(a, b, True, one_key=k <= 16)
-    keys, cnt, n_u = _merge_compact(
-        parts_from_numpy(ah, al, ac, k), parts_from_numpy(bh, bl, bc, k)
-    )
+    keys, cnt, n_u = _merge_compact(parts_from_numpy(*a_planes, k), parts_from_numpy(*b_planes, k))
     assert int(n_u.item()) == int(e_n)
     g_h, g_l, g_c = parts_to_numpy(keys, cnt, k)
     np.testing.assert_array_equal(g_l, np.asarray(e_l))
     np.testing.assert_array_equal(g_c, np.asarray(e_c))
     np.testing.assert_array_equal(g_h, np.asarray(e_h))
+
+
+@pytest.mark.parametrize("k", KS)
+def test_merge_compact_matches_jax(k):
+    """Merge + weighted re-compaction of two parts: the table step of a
+    multi-epoch count."""
+    _check_merge_compact(k, *_parts(99 + k, k, 3000, 2900, 1700, 1400))
+
+
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("kind", ["b_in_a", "a_below_b"])
+def test_merge_compact_cases_match_jax(k, kind):
+    """The same table step where every key of b is in a (each of b's
+    counts adds to one of a's), and where a lies wholly below b."""
+    _check_merge_compact(k, *_parts(7 + k, k, 3000, 2500, 1700, 1600, kind))
 
 
 def test_empty_side():

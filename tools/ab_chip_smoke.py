@@ -26,7 +26,8 @@ _MEASURED = {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_byte
              "bound_ops", "max_abs_err", "equal", "gpu", "n_unique", "invalid_positions",
              "launches", "library_call", "phase"}
 #: shape fields an older tree's lines may lack, with the value they had
-_DEFAULTS = {"encode_windows": {"invalid_share": 0.01}, "rle_compact": {"stream": "random"}}
+_DEFAULTS = {"encode_windows": {"invalid_share": 0.01}, "rle_compact": {"stream": "random"},
+             "merge_sorted": {"parts": "random"}}
 
 
 def row_key(line: dict) -> str:

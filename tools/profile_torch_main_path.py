@@ -14,9 +14,12 @@ dense path), counts it once to warm up, then prints JSON lines:
   totals (host time inside each span: enqueue, not device time) — one
   unprofiled run;
 - ``device``: one run under ``torch.profiler`` (CPU + CUDA activities):
-  device time by kernel or copy name (top 12), device-busy time (the union
-  of kernel and copy intervals), wall time of the count and the device's
-  idle share (1 - busy / wall).
+  device time by kernel or copy name (every name, longest first),
+  device-busy time (the union of kernel and copy intervals), wall time of
+  the count and the device's idle share (1 - busy / wall).
+
+``KRUST_EPOCH_ENTRIES`` set below the input's window count splits the
+count into epochs, so the profile also shows the part merges.
 
 Every line carries the GPU's name and power limit (nvidia-smi).
 """
@@ -128,7 +131,7 @@ def main() -> int:
             if end > last:
                 busy_us += end - max(start, last)
                 last = end
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
         print(json.dumps({
             "device": [{"name": n[:90], "ms": v[0] / 1e3, "calls": v[1]} for n, v in top],
             "device_busy_s": busy_us / 1e6, "wall_s": wall,
