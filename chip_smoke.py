@@ -1,6 +1,6 @@
 """Smoke test of krust_tpu_torch on one NVIDIA GPU: kernels, then the counting paths.
 
-    python3 chip_smoke.py [--seed N] [--phases 1,2,3,4,5,6,7]
+    python3 chip_smoke.py [--seed N] [--phases 1,2,3,4,5,6,7,8]
 
 Needs a CUDA device and ``nvcc`` (the kernels build from
 ``krust_tpu_torch/csrc`` at first use, one nvcc per source, in parallel).
@@ -14,8 +14,11 @@ Phases, printing JSON lines:
    kernel and plain times, the least time the card could take for the same
    work (``bound_ms``) and, where one PyTorch call computes the same
    function, that call's time (``library_ms``; never called by the port).
-   K1 also runs with no invalid position, and K2 on one run over every
-   tile. K3 runs on two random parts of 2^24 entries and on two parts
+   K1 also runs with no invalid position, K2 on one run over every
+   tile, and K4 at narrower rows (256 and 8 windows, equality only). The
+   LSM table's ``merge_runs`` (``torch.sort`` plus K2 weighted) runs at a
+   compaction's size, 8 x 33.5M raw keys plus a 2^26-entry table, against
+   its CPU result. K3 runs on two random parts of 2^24 entries and on two parts
    shaped like phase 4's merge (2^26 entries each, about 46M distinct keys
    that both parts share, sentinel tails), in both key widths; the kernel
    line takes the int64 shared row. K5 lies on no counting path: its
@@ -42,7 +45,13 @@ Phases, printing JSON lines:
    equal to the native core; the host time of ``pack_buffer_2bit``; the
    same parsed stream timed on both device routes (dense, and flat with
    the invalid positions scanned without the 1/32 limit); a dirty ~8 Mbase
-   FASTQ at k in {1, 5, 16, 17, 24, 32} and one block_windows = 8 count.
+   FASTQ at k in {1, 5, 16, 17, 24, 32} and one block_windows = 8 count;
+8. the LSM table path (``EngineConfig(use_epoch_sort=False)``: the
+   ``DeviceTable``, compactions by ``merge_runs``) on phase 3's workload,
+   counters set to 0 just before (K1 and K2 must launch, ``merge_sorted``
+   must not), timed, with peak device memory; then 64 Mbases at k = 16
+   (int32 keys) and a dirty 8 Mbase FASTQ at -Q 20 (K4 into the
+   ``DeviceTable``). Every table equal to the native core's.
 
 The second-to-last line is the kernel table (launches from each kernel's
 phase, times from phase 2), the last line the result. Any failed check
@@ -64,7 +73,7 @@ import numpy as np
 READ_LEN = 250
 GENOME = 16_000_000
 MAIN_BASES = 512_000_000
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8}
 
 #: the card's peaks the bound is taken against (NVIDIA H100 SXM data sheet):
 #: HBM bytes/s, and the float32 rate outside the tensor cores as the rate
@@ -110,11 +119,12 @@ def _bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def _codec_ops(n_windows: int, k: int) -> float:
-    """Integer operations of a codec kernel: per group of four windows,
-    k + 3 base extractions with their forward and reverse-complement
-    updates (about 8 operations each), and 4 per window for the canonical
-    minimum, the validity test and the store."""
-    return n_windows / 4 * (8 * (k + 3) + 16)
+    """Integer operations of a codec, whatever implements it: per window one
+    forward code (a shift and a mask of the 2k window bits), one reverse
+    complement (a complement and a reversal of the k base pairs, one
+    operation a base), one minimum and one validity test over the window's
+    k flags (one operation a base). No fewer than the kernels spend."""
+    return n_windows * (2 * k + 10)
 
 
 def _merge_ops(n_out: int) -> float:
@@ -340,6 +350,21 @@ def _check_dense(rng, gpu, dev, results):
         _emit({"phase": 2, "kernel": "encode_dense", "k": k, "rows": rows,
                "block_windows": w, "equal": True, **times[k], "gpu": gpu})
         del p2, bb, got, exp
+    # narrower rows at the same volume, equality only: 16 rows a block at 256
+    # windows, and 8 (phase 7's block_windows = 8 count), whose runs of 32
+    # windows hold 8 and are stored by their threads
+    for w, k in ((256, 21), (256, 16), (8, 21), (8, 16)):
+        n_rows = rows * 4096 // w
+        width = w + k - 1
+        p4, p8 = -(-width // 4), -(-width // 8)
+        p2 = torch.from_numpy(rng.integers(0, 256, size=(n_rows, p4), dtype=np.uint8)).to(dev)
+        bb = torch.from_numpy(
+            np.packbits(rng.random((n_rows, 8 * p8)) < 0.07, axis=1)).to(dev)
+        if not torch.equal(encode_dense(p2, bb, k, w), encode_dense_plain(p2, bb, k, w)):
+            raise AssertionError(f"K4 k={k} block_windows={w}: kernel != plain")
+        _emit({"phase": 2, "kernel": "encode_dense", "k": k, "rows": n_rows,
+               "block_windows": w, "equal": True})
+        del p2, bb
     results["encode_dense"] = dict(
         times[21], max_abs_err=max(t["max_abs_err"] for t in times.values())
     )
@@ -388,6 +413,50 @@ def _check_merge_keys(rng, gpu, dev, results):
     _emit({"phase": 2, "kernel": "merge_sorted_keys", "entries": [m, m], "equal": True,
            **row, "gpu": gpu})
     results["merge_sorted_keys"] = row
+
+
+def _check_merge_runs(g, gpu, dev):
+    """The LSM table's compaction at its full size: 8 batches of 33.5M raw
+    int64 window keys (unit weights, 1% sentinels, drawn from 46M distinct
+    keys) plus a compacted 2^26-entry table (46M keys with counts, sentinel
+    tail), through ``merge_runs`` on the card and on the CPU (K2's plain
+    version underneath), equal. No kernel of its own: ``torch.sort`` with
+    the weights gathered after, then K2 in weighted mode."""
+    import torch
+
+    from krust_tpu_torch.ops.count import merge_runs
+    from krust_tpu_torch.ops.rle import rle_compact
+
+    n_raw, m = 8 * 8192 * 4096, 1 << 26
+    t_keys, t_cnt = _shared_parts(g, torch.int64, dev)[:2]
+    n_pool = int((t_cnt > 0).sum().item())
+    raw = t_keys[torch.randint(0, n_pool, (n_raw,), generator=g, device=dev)]
+    raw[torch.rand(n_raw, generator=g, device=dev) < 0.01] = torch.iinfo(torch.int64).max
+    keys = torch.cat([raw, t_keys])
+    cnt = torch.cat([torch.ones(n_raw, dtype=torch.int32, device=dev), t_cnt])
+    del raw, t_keys, t_cnt
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = rle_compact.launches
+    got = merge_runs(keys, cnt)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if rle_compact.launches != before + 1:
+        raise AssertionError("merge_runs on the card did not launch K2")
+    exp = merge_runs(keys.cpu(), cnt.cpu())
+    for a, b in zip(got, exp):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("merge_runs: card != CPU")
+    n_unique = int(got[2].item())
+    del got, exp
+    ms = _time_ms(lambda: merge_runs(keys, cnt), 3)
+    sort_ms = _time_ms(lambda: torch.sort(keys), 3)
+    _emit({"phase": 2, "function": "merge_runs", "keys": "torch.int64",
+           "entries": n_raw + m, "raw": n_raw, "table": m, "n_unique": n_unique,
+           "equal_to_cpu": True, "merge_runs_ms": ms, "torch_sort_ms": sort_ms,
+           "peak_bytes_above_inputs": peak,
+           "input_bytes": keys.numel() * 12, "gpu": gpu})
 
 
 # --- phases 3-5: the main path ---------------------------------------------------
@@ -477,7 +546,9 @@ def _zero_launches() -> None:
         fn.launches = 0
 
 
-def _phase3(rng, gpu, tmp):
+def _phase3(rng, gpu, tmp, keep=False):
+    """bench.py's workload, timed twice; with ``keep`` the file and the
+    native core's table stay for phase 8: returns (path, table)."""
     import torch
 
     from krust_tpu_torch.models.engines import BatchEngine, select_engine
@@ -513,7 +584,10 @@ def _phase3(rng, gpu, tmp):
            "genome": GENOME, "distinct": got.distinct, "total": got.total,
            "equal_to_native": True, "data_gen_s": gen_s, "runs": runs,
            "native_core_s": native_s, "gpu": gpu})
+    if keep:
+        return path, exp
     os.unlink(path)
+    return None
 
 
 def _phase4(rng, gpu, tmp) -> dict:
@@ -718,9 +792,67 @@ def _phase7(rng, gpu, tmp) -> dict:
     return first
 
 
+def _phase8(rng, gpu, tmp, main) -> None:
+    """The LSM table path on the card: phase 3's workload (its file and
+    native-core table, made anew when phase 3 did not run), then int32 keys
+    and the dense route."""
+    import torch
+
+    from krust_tpu_torch.utils.config import EngineConfig
+
+    lsm = EngineConfig(use_epoch_sort=False)
+    if main is None:
+        path = os.path.join(tmp, "reads.fa")
+        write_reads(path, rng, MAIN_BASES, GENOME)
+        main = path, _native_counts(path, 21)
+    path, exp = main
+    runs = []
+    for _ in range(2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        got = _port_counts(path, 21, config=lsm)
+        sec = time.perf_counter() - t0
+        launches = _launches()
+        if (launches["encode_windows"] <= 0 or launches["rle_compact"] <= 0
+                or launches["merge_sorted"] != 0):
+            raise AssertionError(f"phase 8 did not take the LSM table path: {launches}")
+        _assert_equal(got, exp, "phase 8 k=21")
+        runs.append({"seconds": sec, "mbases_per_s": MAIN_BASES / 1e6 / sec,
+                     "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                     "launches": launches})
+    _emit({"phase": 8, "table": "DeviceTable", "k": 21, "bases": MAIN_BASES,
+           "read_len": READ_LEN, "genome": GENOME, "distinct": exp.distinct,
+           "total": exp.total, "equal_to_native": True, "runs": runs, "gpu": gpu})
+    os.unlink(path)
+
+    cases = [("reads64.fa", 64_000_000, GENOME, 16, None, {}),
+             ("dirty8.fq", 8_000_000, 1_000_000, 21, 20,
+              dict(fastq=True, n_rate=0.05, soft_rate=0.05, lowq_rate=0.02))]
+    for name, bases, genome, k, q, rates in cases:
+        path = os.path.join(tmp, name)
+        write_reads(path, rng, bases, genome, **rates)
+        _zero_launches()
+        t0 = time.perf_counter()
+        got = _port_counts(path, k, min_quality=q, config=lsm)
+        sec = time.perf_counter() - t0
+        launches = _launches()
+        codec = "encode_dense" if q else "encode_windows"
+        other = "encode_windows" if q else "encode_dense"
+        if (launches[codec] <= 0 or launches[other] != 0 or launches["rle_compact"] <= 0
+                or launches["merge_sorted"] != 0):
+            raise AssertionError(f"phase 8 k={k}: {launches}")
+        _assert_equal(got, _native_counts(path, k, q), f"phase 8 k={k}")
+        _emit({"phase": 8, "table": "DeviceTable", "k": k, "bases": bases, "min_quality": q,
+               "distinct": got.distinct, "equal_to_native": True, "seconds": sec,
+               "launches": launches, "gpu": gpu})
+        os.unlink(path)
+
+
 #: per kernel wrapper: its source, the TPU kernel it replaces, the phase
 #: whose counting run (or, for K5, timing) gives its launches, and the
-#: design it was rebuilt to for the card (None: still its first port)
+#: design it was rebuilt to for the card
 _REPLACES = {
     "encode_windows": ("krust_tpu_torch/csrc/fused_codec.cu",
                        "krust_tpu/ops/pallas_fused.py:258", 4, "tiled codec"),
@@ -730,7 +862,7 @@ _REPLACES = {
                      "krust_tpu/ops/pallas_merge.py:522 (merge_sorted_kv) and "
                      ":414 (merge_sorted_lv)", 4, "merge-path tiled merge"),
     "encode_dense": ("krust_tpu_torch/csrc/codec.cu",
-                     "krust_tpu/ops/pallas_codec.py:145", 7, None),
+                     "krust_tpu/ops/pallas_codec.py:145", 7, "tiled row codec"),
     "merge_sorted_keys": ("krust_tpu_torch/csrc/merge.cu",
                           "krust_tpu/ops/pallas_merge.py:248", 2, "merge-path tiled merge"),
 }
@@ -774,11 +906,14 @@ def main() -> int:
         _check_dense(rng, gpu, dev, results)
         _check_merge_keys(rng, gpu, dev, results)
         torch.cuda.empty_cache()
+        _check_merge_runs(g, gpu, dev)
+        torch.cuda.empty_cache()
 
     launches = {2: {"merge_sorted_keys": results.get("merge_sorted_keys", {}).get("launches")}}
     with tempfile.TemporaryDirectory() as tmp:
+        main = None
         if 3 in phases:
-            _phase3(rng, gpu, tmp)
+            main = _phase3(rng, gpu, tmp, keep=8 in phases)
         if 4 in phases:
             launches[4] = _phase4(rng, gpu, tmp)
         if 5 in phases:
@@ -787,6 +922,8 @@ def main() -> int:
             _phase6(rng, gpu, tmp)
         if 7 in phases:
             launches[7] = _phase7(rng, gpu, tmp)
+        if 8 in phases:
+            _phase8(rng, gpu, tmp, main)
 
     kernels = []
     for name, (source, replaces, phase, redesigned) in _REPLACES.items():

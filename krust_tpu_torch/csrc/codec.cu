@@ -15,97 +15,164 @@
 //
 // Bound on the H100: bytes. A row reads 0.375 B/base and writes 4 B
 // (k <= 16) or 8 B (k > 16) per window, so the write dominates; the
-// arithmetic is far below the card's integer rate. Design: one thread per
-// group of four windows of one row. The TPU kernel's
-// pack-doubling (fewer vector ops on the VPU) and 128-lane padding answer
-// the TPU's layout and are not carried over. The thread loads only the
-// ceil((k + 3) / 4) packed bytes its bases [4q, 4q + k + 2] occupy and the
-// at most 5 badbits bytes that hold their flags, so no load leaves the row
-// (the last group of the last row included). Validity needs no unpacked
-// mask, scatter or dilation: the flags go into one 64-bit word, base 4q in
-// bit 63, and window 4q + r is bad iff the k bits from bit 63 - r hold a 1.
+// arithmetic is far below the card's integer rate. Design: the tile of
+// csrc/codec_tile.cuh (128 threads, a run of 32 consecutive windows of one
+// row each), fed from the dense layout. The TPU kernel's pack-doubling and
+// 128-lane padding answer the TPU's layout and are not carried over.
+//   - A row is cut into runs of 32 windows (the last one partial when
+//     W % 32 != 0). A block keys up to 128 runs: a slice of 128 runs of one
+//     row when the row has that many (W >= 4096: one row a block at the
+//     default W = 4096, several blocks a row above it), else as many whole
+//     rows as fit (W = 256: 16 rows a block).
+//   - Each of the block's row segments loads once into shared memory, the
+//     packed bytes and the badbits bytes alike. Row strides are odd (1029
+//     and 515 bytes at W = 4096, k = 21), so a segment starts at any byte:
+//     it is placed in shared memory at its own offset mod 16, the 16-byte
+//     chunks that lie wholly inside the row load as one vector each, and
+//     the chunks at its two ends load bytewise, zero past the row's end.
+//     No load leaves the row, so none leaves the tensor.
+//   - A thread reads its 64 bases as five aligned words that __byte_perm
+//     turns into four big-endian words at the segment's byte offset, and
+//     its 64 bad bits as three words turned MSB-first to LSB-first by
+//     __brev. The halo is the row's own next bytes; bits past the row's
+//     width touch no window below W. Padding is bad bits already: no
+//     positions, no search, no covered count.
+//   - W % 32 == 0 (every W users run): a block's keys are contiguous in the
+//     output and leave through the shared stage as coalesced 16-byte
+//     stores. Any other W % 4 == 0: each thread stores its run's windows
+//     below W itself as 16-byte vectors (a run starts at a multiple of four
+//     keys), uncoalesced; simple, and held against the plain version too.
 
-#include "common.cuh"
+#include "codec_tile.cuh"
 
 namespace {
 
-// Base t (0..35) of a group of four windows, from the group's first eight
-// packed bytes in w0 (big-endian: base 0 in the top two bits) and its
-// ninth byte in w1.
-__device__ __forceinline__ uint64_t base_at(uint64_t w0, uint32_t w1, int t) {
-  return t < 32 ? (w0 >> (62 - 2 * t)) & 3ull
-                : static_cast<uint64_t>((w1 >> (70 - 2 * t)) & 3u);
+// How a batch of rows of w windows maps onto blocks and shared memory.
+struct DenseTile {
+  int runs_per_row;  // runs of kRun windows in a row, a partial last one included
+  int seg_runs;      // runs of one row a block keys
+  int segs;          // rows a block keys
+  int col_tiles;     // blocks a row takes
+  int seg4;          // shared bytes a segment's packed bytes take
+  int seg8;          // shared bytes a segment's badbits bytes take
+
+  __host__ __device__ explicit DenseTile(int64_t w) {
+    runs_per_row = static_cast<int>((w + kRun - 1) / kRun);
+    seg_runs = runs_per_row < kThreads ? runs_per_row : kThreads;
+    segs = kThreads / seg_runs;
+    col_tiles = (runs_per_row + kThreads - 1) / kThreads;
+    // a thread reads 20 (12) bytes from the word at or below its run's
+    // first byte, 8 (4) bytes a run, and a segment starts up to 15 bytes in
+    seg4 = (8 * seg_runs + 27 + 15) / 16 * 16;
+    seg8 = (4 * seg_runs + 23 + 15) / 16 * 16;
+  }
+
+  __host__ __device__ int smem_bytes() const { return segs * (seg4 + seg8); }
+};
+
+// Bytes [off, stride) of rows row0 .. row0 + segs - 1 (those below `rows`)
+// of a [rows, stride] byte tensor into shared memory: segment s at
+// dst + s * seg, its first byte at its own address mod 16, zero past the
+// row's end. Chunks of 16 bytes wholly inside the row load as one vector.
+__device__ __forceinline__ void load_segments(const uint8_t* __restrict__ base,
+                                              int64_t stride, int off, int64_t row0,
+                                              int64_t rows, int segs, int seg,
+                                              uint8_t* dst) {
+  const int chunks = seg / 16;
+  const int n = static_cast<int>(stride) - off;  // bytes of a row from off
+  for (int f = threadIdx.x; f < segs * chunks; f += kThreads) {
+    const int s = f / chunks;
+    const int c = f - s * chunks;
+    if (row0 + s >= rows) break;
+    const uint8_t* src = base + (row0 + s) * stride + off;
+    const int lo = 16 * c - static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+    uint8_t* d = dst + s * seg + 16 * c;
+    if (lo >= 0 && lo + 16 <= n) {
+      *reinterpret_cast<int4*>(d) = __ldg(reinterpret_cast<const int4*>(src + lo));
+    } else {
+#pragma unroll
+      for (int b = 0; b < 16; ++b) d[b] = lo + b >= 0 && lo + b < n ? src[lo + b] : 0;
+    }
+  }
 }
 
-// Canonical codes (min of forward and reverse complement) of the four
-// windows that start at bases 0..3 of a group: the first window's codes
-// build in k steps and the next three roll in one step each.
-__device__ __forceinline__ void group_canonical(uint64_t w0, uint32_t w1, int k,
-                                                uint64_t canon[4]) {
-  const uint64_t mask = k == 32 ? ~0ull : ((1ull << (2 * k)) - 1);
-  const int top = 2 * (k - 1);
-  uint64_t fwd = 0, rc = 0;
-  for (int t = 0; t < k; ++t) {
-    const uint64_t c = base_at(w0, w1, t);
-    fwd = (fwd << 2) | c;
-    rc = (rc >> 2) | ((3ull - c) << top);
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    if (r) {
-      const uint64_t c = base_at(w0, w1, k - 1 + r);
-      fwd = ((fwd << 2) | c) & mask;
-      rc = (rc >> 2) | ((3ull - c) << top);
-    }
-    canon[r] = rc < fwd ? rc : fwd;
-  }
+// Big-endian word of the four bytes at byte offset sh (0..3) of the
+// little-endian words (lo, hi).
+__device__ __forceinline__ uint32_t be_word(uint32_t lo, uint32_t hi, int sh) {
+  return __byte_perm(lo, hi, 0x0123 + 0x1111 * sh);
 }
 
 template <typename Key>
-__global__ void encode_dense_kernel(const uint8_t* __restrict__ packed2,
-                                    const uint8_t* __restrict__ badbits,
-                                    int64_t rows, int64_t p4, int64_t p8,
-                                    int k, int64_t w, Key* __restrict__ out) {
-  const int64_t groups_per_row = w / 4;
-  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (t >= rows * groups_per_row) return;
-  const int64_t row = t / groups_per_row;
-  const int64_t q = t - row * groups_per_row;
+__global__ void __launch_bounds__(kThreads)
+encode_dense_kernel(const uint8_t* __restrict__ packed2,
+                    const uint8_t* __restrict__ badbits, int64_t rows, int64_t p4,
+                    int64_t p8, int k, int64_t w, Key* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t s_in[];
+  __shared__ __align__(16) Key s_out[KeyRun<Key>::kStage];
 
-  // bases 4q .. 4q + k + 2 sit in packed bytes q .. q + ceil((k + 3) / 4) - 1
-  const uint8_t* p = packed2 + row * p4 + q;
-  const int n4 = (k + 6) / 4;
-  uint64_t w0 = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) w0 = (w0 << 8) | (i < n4 ? p[i] : 0u);
-  const uint32_t w1 = n4 > 8 ? p[8] : 0u;
-  uint64_t canon[4];
-  group_canonical(w0, w1, k, canon);
+  const DenseTile tile(w);
+  const int t = threadIdx.x;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x / tile.col_tiles) * tile.segs;
+  const int run0 = static_cast<int>(blockIdx.x % tile.col_tiles) * kThreads;
+  uint8_t* s4 = s_in;
+  uint8_t* s8 = s_in + tile.segs * tile.seg4;
+  load_segments(packed2, p4, run0 * (kRun / 4), row0, rows, tile.segs, tile.seg4, s4);
+  load_segments(badbits, p8, run0 * (kRun / 8), row0, rows, tile.segs, tile.seg8, s8);
+  __syncthreads();
 
-  // their flags sit in badbits bytes (4q) / 8 .. (4q + k + 2) / 8: at most 5
-  const uint8_t* b = badbits + row * p8 + q / 2;
-  const int n8 = static_cast<int>((4 * q + k + 2) / 8 - q / 2) + 1;
-  uint64_t bits = 0;
+  const bool staged = w % kRun == 0;
+  const int s = t / tile.seg_runs;      // this thread's segment
+  const int j = t - s * tile.seg_runs;  // and its run in it
+  const int64_t row = row0 + s;
+  const int run = run0 + j;
+  if (s < tile.segs && row < rows && run < tile.runs_per_row) {
+    // bases 32 run .. 32 run + 63 of the row as four big-endian words
+    const uint8_t* src4 = packed2 + row * p4 + run0 * (kRun / 4);
+    const int a4 = s * tile.seg4 + static_cast<int>(reinterpret_cast<uintptr_t>(src4) & 15) +
+                   j * (kRun / 4);
+    const uint32_t* v = reinterpret_cast<const uint32_t*>(s4 + (a4 & ~3));
+    uint32_t b[4];
 #pragma unroll
-  for (int i = 0; i < 5; ++i) bits = (bits << 8) | (i < n8 ? b[i] : 0u);
-  bits <<= 24 + 4 * (q & 1);  // base 4q's flag in bit 63
-
-  Key* o = out + row * w + 4 * q;
+    for (int i = 0; i < 4; ++i) b[i] = be_word(v[i], v[i + 1], a4 & 3);
+    // their bad bits, bit i for base 32 run + i
+    const uint8_t* src8 = badbits + row * p8 + run0 * (kRun / 8);
+    const int a8 = s * tile.seg8 + static_cast<int>(reinterpret_cast<uintptr_t>(src8) & 15) +
+                   j * (kRun / 8);
+    const uint32_t* u = reinterpret_cast<const uint32_t*>(s8 + (a8 & ~3));
+    const uint64_t bad = static_cast<uint64_t>(__brev(be_word(u[1], u[2], a8 & 3))) << 32 |
+                         __brev(be_word(u[0], u[1], a8 & 3));
+    KeyRun<Key> keys;
+    key_run<Key>(b, window_poison(bad, k), k, keys);
+    if (staged) {
+      stage_run<Key>(keys, s_out, t);
+    } else {
+      // the run's windows below w, a multiple of four
+      const int col = run * kRun;
+      const int vecs = static_cast<int>(w - col < kRun ? w - col : kRun) / KeyRun<Key>::kVec;
+      int4* dst = reinterpret_cast<int4*>(out + row * w + col);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const bool bad = ((bits << r) >> (64 - k)) != 0;
-    o[r] = bad ? KeyTraits<Key>::kSentinel : KeyTraits<Key>::from_code(canon[r]);
+      for (int i = 0; i < KeyRun<Key>::kVecs; ++i)
+        if (i < vecs) dst[i] = keys.q[i];
+    }
+  }
+  if (staged) {
+    __syncthreads();
+    // the block's runs are threads 0 .. n - 1 and contiguous in the output
+    const int64_t left = rows - row0 < tile.segs ? rows - row0 : tile.segs;
+    const int in_row = tile.runs_per_row - run0 < tile.seg_runs ? tile.runs_per_row - run0
+                                                                : tile.seg_runs;
+    store_tile<Key>(s_out, out + row0 * w + static_cast<int64_t>(run0) * kRun,
+                    static_cast<int>(left) * in_row * kRun, t);
   }
 }
 
 template <typename Key>
 int launch(const void* packed2, const void* badbits, int64_t rows, int64_t p4,
            int64_t p8, int k, int64_t w, void* out, void* stream) {
-  const int64_t n_groups = rows * (w / 4);
-  if (n_groups > 0) {
-    const int threads = 256;
-    const int64_t blocks = (n_groups + threads - 1) / threads;
-    encode_dense_kernel<Key><<<static_cast<unsigned>(blocks), threads, 0,
+  if (rows > 0 && w > 0) {
+    const DenseTile tile(w);
+    const int64_t blocks = (rows + tile.segs - 1) / tile.segs * tile.col_tiles;
+    encode_dense_kernel<Key><<<static_cast<unsigned>(blocks), kThreads, tile.smem_bytes(),
                                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(packed2),
         static_cast<const uint8_t*>(badbits), rows, p4, p8, k, w,
@@ -118,7 +185,7 @@ int launch(const void* packed2, const void* badbits, int64_t rows, int64_t p4,
 
 // packed2: rows x p4 bytes, p4 = ceil((w + k - 1) / 4); badbits: rows x p8
 // bytes, p8 = ceil((w + k - 1) / 8); out: rows * w keys (int32 for k <= 16,
-// int64 otherwise); w % 4 == 0
+// int64 otherwise), 16-byte aligned; w % 4 == 0
 KRUST_API int krust_encode_dense_i32(int device, const void* packed2,
                                      const void* badbits, int64_t rows,
                                      int64_t p4, int64_t p8, int k, int64_t w,

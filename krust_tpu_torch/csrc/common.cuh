@@ -1,4 +1,8 @@
-// Shared helpers of the port's hand-written Hopper kernels.
+// Shared helpers of the port's hand-written Hopper kernels: the exported
+// functions' linkage (KRUST_API), the device selection every entry point
+// starts with (set_device) and the key form (KeyTraits: bias and sentinel
+// per key width). What only the two codec kernels share, their tile's
+// window arithmetic, poison step and staged store, is in codec_tile.cuh.
 //
 // Keys: a canonical k-mer code c (2k bits, unsigned) is stored biased so
 // that signed order equals unsigned order and the all-ones sentinel sorts

@@ -20,21 +20,14 @@
 //     its k bits of the mask hold a 1, or it lies at or past `covered`: no
 //     per-thread search, no dilation pass over memory.
 //   - Each thread keys a run of kRun = 32 consecutive windows from 16
-//     packed bytes in four 32-bit words: window r's forward code is a
-//     funnel shift of them, its reverse complement a bit reversal of the
-//     complement with the bit pairs swapped back (32-bit arithmetic for
-//     k <= 16), so no window waits on another; the thread's 32 validity
-//     bits come from its 64 mask bits in log2(k) shift-or steps.
-//   - Keys are staged in shared memory (one pad vector per thread row, no
-//     bank conflicts) and written out as coalesced 16-byte stores.
+//     packed bytes and its 64 bits of the mask, and the tile leaves as
+//     coalesced 16-byte stores: the tile of csrc/codec_tile.cuh, shared
+//     with K4.
 
-#include "common.cuh"
+#include "codec_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRun = 32;                    // windows per thread
-constexpr int kTile = kThreads * kRun;      // windows per block
 constexpr int kTileBytes = kTile / 4;       // their packed bytes
 constexpr int kHalo = 8;                    // bytes the contract adds past them
 constexpr int kBufBytes = kTileBytes + 16;  // the last thread reads 16 bytes
@@ -59,62 +52,15 @@ __device__ __forceinline__ int64_t warp_lower_bound(const int32_t* __restrict__ 
   return lo + __popc(__ballot_sync(0xffffffffu, p < hi && a[p] < x));
 }
 
-// The top 32 bits of the base stream w[0..3] (big-endian words, 16 bases
-// each) shifted left by r bases (r < 48): bases r .. r + 15.
-__device__ __forceinline__ uint32_t bases_at(const uint32_t (&w)[4], int r) {
-  return __funnelshift_l(w[r / 16 + 1], w[r / 16], 2 * (r % 16));
-}
-
-// Reverse of the 2-bit groups of a bit-reversed word: the bit pairs of
-// __brev back in order.
-__device__ __forceinline__ uint32_t swap_pairs(uint32_t y) {
-  return ((y >> 1) & 0x55555555u) | ((y << 1) & 0xAAAAAAAAu);
-}
-
-__device__ __forceinline__ uint64_t swap_pairs(uint64_t y) {
-  return ((y >> 1) & 0x5555555555555555ull) | ((y << 1) & 0xAAAAAAAAAAAAAAAAull);
-}
-
-// Canonical code of window r of the stream, biased, for k <= 16 (32-bit
-// arithmetic) or k > 16: the forward code is the window's top bits, the
-// reverse complement the complement of the window bit-reversed with its
-// bit pairs swapped back, masked to 2k bits.
-template <typename Key>
-struct Window;
-
-template <>
-struct Window<int32_t> {
-  static __device__ __forceinline__ int32_t key(const uint32_t (&w)[4], int r, int k) {
-    const uint32_t x = bases_at(w, r);
-    const uint32_t fwd = x >> (32 - 2 * k);
-    const uint32_t mask = k == 16 ? ~0u : (1u << (2 * k)) - 1;
-    const uint32_t rc = ~swap_pairs(__brev(x)) & mask;
-    return KeyTraits<int32_t>::from_code(rc < fwd ? rc : fwd);
-  }
-};
-
-template <>
-struct Window<int64_t> {
-  static __device__ __forceinline__ int64_t key(const uint32_t (&w)[4], int r, int k) {
-    const uint64_t x = static_cast<uint64_t>(bases_at(w, r)) << 32 | bases_at(w, r + 16);
-    const uint64_t fwd = x >> (64 - 2 * k);
-    const uint64_t mask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
-    const uint64_t rc = ~swap_pairs(static_cast<uint64_t>(__brevll(x))) & mask;
-    return KeyTraits<int64_t>::from_code(rc < fwd ? rc : fwd);
-  }
-};
-
 template <typename Key>
 __global__ void __launch_bounds__(kThreads)
 encode_windows_kernel(const uint8_t* __restrict__ packed,
                       const int32_t* __restrict__ invpos, int64_t n_inv,
                       int64_t covered, int k, int64_t n_windows,
                       Key* __restrict__ out) {
-  constexpr int kVec = 16 / sizeof(Key);        // keys per 16-byte vector
-  constexpr int kRowVecs = kRun / kVec;         // vectors per thread row
   __shared__ __align__(16) uint8_t s_bytes[kBufBytes];
   __shared__ uint32_t s_bad[kBadWords];
-  __shared__ __align__(16) Key s_out[kThreads * (kRun + kVec)];
+  __shared__ __align__(16) Key s_out[KeyRun<Key>::kStage];
   __shared__ int64_t s_range[2];
 
   const int t = threadIdx.x;
@@ -152,33 +98,17 @@ encode_windows_kernel(const uint8_t* __restrict__ packed,
     uint32_t w[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) w[i] = __byte_perm(src_w[i], 0, 0x0123);
-    // bit r: window r holds a bad base (the OR of bad bits [r, r + k), by
-    // doubling to the largest power of two len <= k), or lies past covered
-    uint64_t d = static_cast<uint64_t>(s_bad[j0 / 32 + 1]) << 32 | s_bad[j0 / 32];
-    int len = 1;
-    for (; 2 * len <= k; len *= 2) d |= d >> len;
-    uint32_t poison = static_cast<uint32_t>(d | d >> (k - len));
+    // the window holds a bad base, or lies past covered
+    uint32_t poison = window_poison(
+        static_cast<uint64_t>(s_bad[j0 / 32 + 1]) << 32 | s_bad[j0 / 32], k);
     const int64_t live = covered - (start + j0);
     if (live < kRun) poison |= live <= 0 ? ~0u : ~0u << live;
-    union {
-      int4 q[kRowVecs];
-      Key key[kRun];
-    } keys;
-#pragma unroll
-    for (int r = 0; r < kRun; ++r) {
-      keys.key[r] = (poison >> r) & 1 ? KeyTraits<Key>::kSentinel : Window<Key>::key(w, r, k);
-    }
-    int4* row = reinterpret_cast<int4*>(s_out) + t * (kRowVecs + 1);
-#pragma unroll
-    for (int v = 0; v < kRowVecs; ++v) row[v] = keys.q[v];
+    KeyRun<Key> keys;
+    key_run<Key>(w, poison, k, keys);
+    stage_run<Key>(keys, s_out, t);
   }
   __syncthreads();
-
-  // coalesced 16-byte stores of the tile's windows / kVec vectors
-  int4* dst = reinterpret_cast<int4*>(out + start);
-  const int4* stage = reinterpret_cast<const int4*>(s_out);
-  for (int v = t; v < windows / kVec; v += kThreads)
-    dst[v] = stage[v / kRowVecs * (kRowVecs + 1) + v % kRowVecs];
+  store_tile<Key>(s_out, out + start, windows, t);
 }
 
 template <typename Key>

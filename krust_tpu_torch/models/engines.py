@@ -395,16 +395,18 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 class BatchEngine:
     """Device engine: stream fixed-shape batches through the codec kernel
-    into the epoch-sort table, on ``config.device``."""
+    into the count table (epoch-sort, or the LSM table when
+    ``config.use_epoch_sort`` is False), on ``config.device``."""
 
     def __init__(self, config: EngineConfig | None = None):
         self.config = config or EngineConfig()
         self.device = self.config.resolved_device()
 
     def _make_table(self, k: int):
-        from ..ops.table import EpochTable
+        from ..ops.table import DeviceTable, EpochTable
 
-        return EpochTable(k, self.device)
+        table = EpochTable if self.config.use_epoch_sort else DeviceTable
+        return table(k, self.device)
 
     def _feed_streams(self, streams, k, min_quality, table, epochs, on_windows) -> None:
         """Feed one parsed stream's batches into ``table`` (shared by the
@@ -466,6 +468,8 @@ class BatchEngine:
             def rows_and_windows(b):
                 return b.packed2.shape[0], b.n_windows
 
+        # the LSM table takes weights beside the keys: None, one a window
+        weights = () if cfg.use_epoch_sort else (None,)
         with _Feed(batches, stage, cfg.feed_depth) as staged:
             for arrays, batch in staged:
                 rows, windows = rows_and_windows(batch)
@@ -473,7 +477,7 @@ class BatchEngine:
                 if table.windows_this_epoch + batch_windows >= table_mod.EPOCH_WINDOW_LIMIT:
                     epochs.append(table.finalize())  # int32 count headroom
                 with span("encode_count_batch", rows=rows):
-                    table.add(step(arrays, batch), batch_windows)
+                    table.add(step(arrays, batch), *weights, batch_windows)
                 on_windows(windows)
 
     @staticmethod

@@ -10,7 +10,14 @@ tensor, no valid plane). Keys come out in row-major window order as the
 biased keys of :mod:`krust_tpu_torch.ops.keys`.
 
 Bound on the H100: bytes — 0.375 B/base in, 4 B (k <= 16) or 8 B (k > 16)
-per window out. The kernel source says what its design does about it.
+per window out. The kernel is K1's tile fed from the dense layout: a block
+loads its rows' packed and badbits bytes into shared memory once (16-byte
+loads inside each odd-strided row, bytes at its ends), each thread keys a
+run of 32 consecutive windows of one row with the window arithmetic K1 uses
+(``csrc/codec_tile.cuh``), its validity bits straight from the badbits, and
+the keys leave as coalesced 16-byte stores. ``csrc/codec.cu`` has the
+details, and says which path serves a ``block_windows`` that is no multiple
+of 32.
 
 :func:`encode_dense` launches the CUDA kernel for CUDA tensors and runs
 :func:`encode_dense_plain`, the plain PyTorch version, for CPU tensors.

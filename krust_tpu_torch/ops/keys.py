@@ -13,8 +13,8 @@ canonical since its reverse complement is all-A — which the bias turns into
 the dtype's maximum, so sentinels sort last. The TPU engine's (hi, lo)
 uint32 lane pairs and plane-separated window order are TPU layout devices
 the port drops; :func:`parts_from_numpy` / :func:`parts_to_numpy` convert
-its compacted parts to and from this form, and :func:`keys_from_step`
-converts its per-window step output.
+its parts (compacted, or raw with zero-weight padding) to and from this
+form, and :func:`keys_from_step` converts its per-window step output.
 """
 
 from __future__ import annotations
@@ -51,14 +51,23 @@ def keys_to_codes(keys: np.ndarray, k: int) -> np.ndarray:
     return (keys.view(udt) ^ bias).astype(np.uint64)
 
 
-def parts_from_numpy(hi, lo, cnt, k: int, device=None):
-    """A ``krust_tpu`` compacted part (uint32 hi, lo, cnt planes; hi may be
-    None for k <= 16) -> (keys, int32 counts) tensors of the port."""
-    codes = np.asarray(lo, np.uint32).astype(np.uint64)
+def parts_from_numpy(hi, lo, cnt, k: int, device=None, zero_is_padding: bool = False):
+    """A ``krust_tpu`` part (uint32 hi, lo, cnt planes; hi may be None for
+    k <= 16) -> (keys, int32 counts) tensors of the port.
+
+    A compacted part carries sentinel keys in its padding already. A raw
+    part (the input of ``krust_tpu.ops.count.merge_runs``, the parts of its
+    ``DeviceTable``) pads with zero-weight entries under any key: with
+    ``zero_is_padding`` those become sentinel keys, the port's padding.
+    """
+    codes = np.asarray(lo, np.uint32).reshape(-1).astype(np.uint64)
     if k > 16:
-        codes |= np.asarray(hi, np.uint32).astype(np.uint64) << np.uint64(32)
+        codes |= np.asarray(hi, np.uint32).reshape(-1).astype(np.uint64) << np.uint64(32)
+    cnt = np.asarray(cnt, np.uint32).reshape(-1)
+    if zero_is_padding:
+        codes[cnt == 0] = np.uint64(2**64 - 1)
     keys = torch.from_numpy(np.ascontiguousarray(codes_to_keys(codes, k)))
-    counts = torch.from_numpy(np.asarray(cnt, np.uint32).view(np.int32).copy())
+    counts = torch.from_numpy(cnt.view(np.int32).copy())
     return keys.to(device), counts.to(device)
 
 
@@ -79,14 +88,21 @@ def keys_from_step(part, k: int) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(codes_to_keys(codes, k)))
 
 
-def parts_to_numpy(keys: torch.Tensor, counts: torch.Tensor, k: int):
+def parts_to_numpy(keys: torch.Tensor, counts: torch.Tensor, k: int,
+                   zero_is_padding: bool = False):
     """The inverse of :func:`parts_from_numpy`: (hi, lo, cnt) uint32 planes
-    (hi all zero for real k <= 16 codes, all-ones for sentinels)."""
+    (hi all zero for real k <= 16 codes, all-ones for sentinels). With
+    ``zero_is_padding`` a sentinel entry becomes ``krust_tpu``'s raw
+    padding, (0, 0) with weight 0."""
     kn = keys.cpu().numpy()
     codes = keys_to_codes(kn, k)
+    cnt = counts.cpu().numpy().view(np.uint32)
+    pad = kn == sentinel(keys.dtype)
     if k <= 16:
-        hi = np.where(kn == sentinel(keys.dtype), 0xFFFFFFFF, 0).astype(np.uint32)
+        hi = np.where(pad, 0xFFFFFFFF, 0).astype(np.uint32)
     else:
         hi = (codes >> np.uint64(32)).astype(np.uint32)
     lo = (codes & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    return hi, lo, counts.cpu().numpy().view(np.uint32)
+    if zero_is_padding:
+        hi, lo, cnt = (np.where(pad, 0, a).astype(np.uint32) for a in (hi, lo, cnt))
+    return hi, lo, cnt

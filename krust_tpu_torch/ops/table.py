@@ -1,18 +1,33 @@
-"""Epoch-sort count table: the port's counting core on the device.
+"""The count tables: the port's counting core on the device.
 
-Counterpart of ``krust_tpu/ops/table.py:EpochTable``. Batches append RAW
-sentinel-keyed window keys (no per-batch sort, no weights); once about
+Counterparts of ``krust_tpu/ops/table.py``'s two accumulators. Both take a
+batch's sentinel-keyed window keys and give the distinct table back once,
+in ``finalize``.
+
+:class:`EpochTable` (the default, ``EngineConfig.use_epoch_sort``): batches
+append RAW keys (no per-batch sort, no weights); once about
 ``epoch_entry_limit()`` entries are pending, one flat ``torch.sort`` plus
 the RLE kernel (:mod:`krust_tpu_torch.ops.rle`) turn them into a compacted
 distinct part. Parts merge pairwise with the merge kernel
-(:mod:`krust_tpu_torch.ops.merge`) and re-compact. ``finalize`` copies the
-first n entries of the one remaining part to the host.
+(:mod:`krust_tpu_torch.ops.merge`) and re-compact.
 
-Kept from the TPU engine: the deferred n-sync (an epoch's ``n_unique``
-stays on the device until the next flush needs it, so batches queued since
-overlap the sort), the memory-scaled entry limit, and the one-shot
-adaptive retune of the epoch size. Not kept: the pull encodings for a
-tunnelled host link (a direct PCIe copy of the table is the pull).
+:class:`DeviceTable` (``use_epoch_sort=False``): the LSM accumulator.
+Batches append weighted parts (raw keys count 1 each); when ``max_parts``
+parts or the pending-entry limit are reached, the parts and the compacted
+table concatenate and re-merge with :func:`~krust_tpu_torch.ops.count.
+merge_runs` (``torch.sort`` with the weights following, then the RLE
+kernel). Every window is sorted once, the table once per compaction. It is
+the state machine the sharded tables build on.
+
+``finalize`` copies the first n entries of the table to the host.
+
+Kept from the TPU engine: the deferred n-sync (a sort's ``n_unique`` stays
+on the device until the next flush or compaction needs it, so batches
+queued since overlap the sort), the memory-scaled entry limits, and the
+one-shot adaptive retune of the epoch size. Not kept: the pull encodings
+for a tunnelled host link (a direct PCIe copy of the table is the pull) and
+the 4M-entry bucket padding of a compaction's input (it bounds jit
+recompiles; nothing here compiles).
 
 Counts are int32: a table sees fewer than ``EPOCH_WINDOW_LIMIT`` = 2^31
 windows before the engine flushes it to the host's u64 accumulator.
@@ -27,6 +42,7 @@ import torch
 
 from ..utils.numutil import round_pow2 as _round_pow2
 from ..utils.tracing import span, trace_event
+from .count import merge_runs
 from .keys import keys_to_codes
 from .merge import merge_sorted
 from .rle import rle_compact
@@ -91,6 +107,130 @@ def _part(o_keys, o_cnt, n):
     RLE output, copied so the full-length buffers can be freed."""
     keep = min(_round_pow2(max(n, 1)), o_keys.numel())
     return o_keys[:keep].clone(), o_cnt[:keep].clone(), n
+
+
+def _pull_table(t_keys, t_cnt, n: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Device -> host copy of a table's first n entries: (codes u64, counts
+    u64), sorted by code."""
+    with span("pull_table", entries=n):
+        keys = t_keys[:n].cpu().numpy()
+        counts = t_cnt[:n].cpu().numpy()
+    return keys_to_codes(keys, k), counts.astype(np.uint64)
+
+
+def _empty_table() -> tuple[np.ndarray, np.ndarray]:
+    return np.zeros(0, np.uint64), np.zeros(0, np.uint64)
+
+
+class DeviceTable:
+    """LSM accumulator of weighted (key, count) parts on one device.
+
+    The sharded tables reuse this add / resolve / compact state machine by
+    overriding the ``_prepare_part`` / ``_do_merge`` / ``_read_n`` hooks.
+    """
+
+    #: merge-input entries (pending parts + compacted table) that force a
+    #: compaction, at _REFERENCE_MEM: it bounds the sort's working set.
+    #: Scaled by the device's memory; KRUST_PENDING_ENTRIES overrides. Tuned
+    #: on the TPU engine's part like EPOCH_ENTRY_LIMIT, and like it to be
+    #: re-derived for the H100 (ROADMAP A7).
+    PENDING_ENTRY_LIMIT = 280_000_000
+
+    def __init__(self, k: int, device: torch.device, max_parts: int = 8):
+        self._k = k
+        self._device = torch.device(device)
+        self._max_parts = max_parts
+        self._pending_limit = _scaled_limit(
+            "KRUST_PENDING_ENTRIES", type(self).PENDING_ENTRY_LIMIT, self._device
+        )
+        self._reset()
+
+    def _reset(self) -> None:
+        self._parts: list[tuple[torch.Tensor, torch.Tensor | None]] = []
+        self._pending = 0
+        # resolved table: a copy of the first round_pow2(n) merge outputs
+        self._table: tuple[torch.Tensor, torch.Tensor, int] | None = None
+        # unresolved merge: full-length output + device-side n
+        self._merge = None
+        self.windows_this_epoch = 0
+
+    # --- hooks ------------------------------------------------------------
+
+    def _prepare_part(self, keys, cnt):
+        return keys.reshape(-1), None if cnt is None else cnt.reshape(-1)
+
+    def _do_merge(self, keys, cnt):
+        return merge_runs(keys, cnt)
+
+    def _read_n(self, n_dev) -> int:
+        return int(n_dev.item())
+
+    # --- LSM state machine --------------------------------------------------
+
+    def add(self, keys: torch.Tensor, cnt: torch.Tensor | None, n_windows: int) -> None:
+        """Append one batch's keys with their int32 weights (None: every
+        entry counts 1; a sentinel key or a zero weight is padding)."""
+        part = self._prepare_part(keys, cnt)
+        self._parts.append(part)
+        self._pending += part[0].numel()
+        self.windows_this_epoch += n_windows
+        # Parts batch up before a merge: every window is sorted once either
+        # way, so fewer merges mean fewer sorts of the table and fewer
+        # syncs. A merge sorts the parts AND the table, so the trigger
+        # counts the table's length in, with a floor of limit / 8 pending so
+        # that a huge table cannot force a merge per batch.
+        held = self._table or self._merge
+        table_len = held[0].numel() if held is not None else 0
+        pending_cap = max(self._pending_limit - table_len, self._pending_limit // 8)
+        if len(self._parts) >= self._max_parts or self._pending >= pending_cap:
+            self._compact()
+
+    def _resolve(self) -> None:
+        """Turn the in-flight merge into the table: one scalar sync, which
+        the batches queued since the merge overlap, and a copy of the first
+        round_pow2(n) entries, so the full-length output is freed."""
+        if self._merge is None:
+            return
+        m_keys, m_cnt, n_dev = self._merge
+        self._merge = None
+        n = self._read_n(n_dev)
+        trace_event("table_compacted", unique_kmers=n)
+        self._table = _part(m_keys, m_cnt, n)
+
+    def _concat(self):
+        """The merge input: every pending part, then the table."""
+        keys = [p[0] for p in self._parts]
+        cnt = [
+            torch.ones(p[0].numel(), dtype=torch.int32, device=p[0].device)
+            if p[1] is None else p[1].to(torch.int32)
+            for p in self._parts
+        ]
+        if self._table is not None:
+            keys.append(self._table[0])
+            cnt.append(self._table[1])
+        return torch.cat(keys), torch.cat(cnt)
+
+    def _compact(self) -> None:
+        self._resolve()  # syncs the previous merge; overlaps queued batches
+        if not self._parts:
+            return
+        with span("table_compact", pending=self._pending):
+            keys, cnt = self._concat()
+            self._parts = []
+            self._pending = 0
+            self._table = None
+            self._merge = self._do_merge(keys, cnt)
+
+    def finalize(self) -> tuple[np.ndarray, np.ndarray]:
+        """Compact and copy the distinct table to the host: (codes u64,
+        counts u64), sorted by code. The table is empty afterwards."""
+        self._compact()
+        self._resolve()
+        table = self._table
+        self._reset()
+        if table is None or table[2] == 0:
+            return _empty_table()
+        return _pull_table(*table, self._k)
 
 
 class EpochTable:
@@ -188,16 +328,8 @@ class EpochTable:
         self._flush_raw()
         self._resolve_epoch()
         self._merge_compacted()
-        if not self._compacted:
-            self._reset()
-            return np.zeros(0, np.uint64), np.zeros(0, np.uint64)
-        t_keys, t_cnt, n = self._compacted[0]
+        compacted = self._compacted
         self._reset()
-        return self._pull_table(t_keys, t_cnt, n)
-
-    def _pull_table(self, t_keys, t_cnt, n) -> tuple[np.ndarray, np.ndarray]:
-        """Device -> host copy of the first n entries."""
-        with span("pull_table", entries=n):
-            keys = t_keys[:n].cpu().numpy()
-            counts = t_cnt[:n].cpu().numpy()
-        return keys_to_codes(keys, self._k), counts.astype(np.uint64)
+        if not compacted:
+            return _empty_table()
+        return _pull_table(*compacted[0], self._k)

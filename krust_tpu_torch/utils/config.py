@@ -51,6 +51,13 @@ class EngineConfig:
     #: bit-identical either way (FIFO order preserved).
     feed_depth: int = 2
 
+    #: count through the epoch-sort table (raw keys, one flat sort + RLE per
+    #: epoch, part merges by the merge kernel). False: the LSM
+    #: :class:`~krust_tpu_torch.ops.table.DeviceTable` (weighted parts
+    #: re-merged with the table by ``ops/count.merge_runs``), the on-device
+    #: oracle of the epoch table and the base of the sharded tables.
+    use_epoch_sort: bool = True
+
     #: device the batch engine counts on (None = :func:`default_device`)
     device: torch.device | str | None = None
 

@@ -19,10 +19,14 @@ from krust_tpu_torch.kmer import INVALID_CODE
 from krust_tpu_torch.models.engines import BatchEngine, NumpyEngine
 from krust_tpu_torch.ops.fused_codec import TAIL_BYTES, encode_windows, encode_windows_plain
 from krust_tpu_torch.ops.codec import encode_dense, encode_dense_plain
+from krust_tpu_torch.ops.count import (
+    count_runs, count_unique, merge_runs, merge_runs_presorted, merge_weighted,
+)
 from krust_tpu_torch.ops.merge import (
     merge_sorted, merge_sorted_keys, merge_sorted_keys_plain, merge_sorted_plain,
 )
 from krust_tpu_torch.ops.rle import rle_compact, rle_compact_plain
+from krust_tpu_torch.ops.table import DeviceTable
 from krust_tpu_torch.utils.config import EngineConfig
 
 pytestmark = pytest.mark.cuda
@@ -247,6 +251,63 @@ def test_dense_codec_kernel_matches_plain(dev, k, w):
     assert torch.equal(got, encode_dense_plain(p2, bb, k, w))
 
 
+def _dense_rows(rng, case, rows, w, k):
+    """Base codes and bad flags [rows, w + k - 1] of a dense codec case."""
+    width = w + k - 1
+    bases = rng.integers(0, 4, size=(rows, width), dtype=np.uint8)
+    bad = np.zeros((rows, width), bool)
+    if case == "dirty":  # 7% bad, an all-bad row between good rows
+        bad = rng.random((rows, width)) < 0.07
+        bad[rows // 2] = rows >= 3
+        if k == 32:
+            bases[0] = 2  # canonical 32-mers with bit 63 set
+    elif case != "clean":  # one bad base a row
+        bad[:, {"first": 0, "last_window": w - 1, "last_halo": width - 1}[case]] = True
+    return bases, bad
+
+
+def _skewed(arr, skew, dev):
+    """``arr`` [rows, n] on the card as a contiguous view that starts ``skew``
+    bytes into its buffer and ends at the buffer's last byte."""
+    buf = torch.zeros(skew + arr.size, dtype=torch.uint8, device=dev)
+    buf[skew:] = torch.from_numpy(arr.reshape(-1)).to(dev)
+    return buf[skew:].view(arr.shape)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 100])
+@pytest.mark.parametrize("k", [1, 2, 5, 15, 16, 17, 21, 31, 32])
+@pytest.mark.parametrize("w", [4, 8, 36, 256, 4096, 8192])
+def test_dense_codec_tile_matches_plain(dev, w, k, rows):
+    """K4's tile at row widths below, at and above a block's 4096 windows
+    and at a width that is no multiple of 32 (the direct-store path): no bad
+    bit, one on each row's first base, on its last window's first base and
+    on its last halo base, and 7% bad bits with an all-bad row between good
+    rows; each on tensors that start 0..15 bytes off a 16-byte boundary (the
+    rows' odd strides give every offset) and end at their buffer's last
+    byte."""
+    rng = np.random.default_rng(1000 * w + 10 * k + rows)
+    width = w + k - 1
+    p4, p8 = -(-width // 4), -(-width // 8)
+    for case in ("clean", "first", "last_window", "last_halo", "dirty"):
+        bases, bad = _dense_rows(rng, case, rows, w, k)
+        quads = np.zeros((rows, 4 * p4), np.uint8)
+        quads[:, :width] = bases
+        q = quads.reshape(rows, p4, 4)
+        packed2 = q[:, :, 0] << 6 | q[:, :, 1] << 4 | q[:, :, 2] << 2 | q[:, :, 3]
+        flags = np.ones((rows, 8 * p8), bool)  # padding is bad
+        flags[:, :width] = bad
+        badbits = np.packbits(flags, axis=1)
+        skew4, skew8 = (0, 0) if case == "clean" else rng.integers(1, 16, 2)
+        p2 = _skewed(np.ascontiguousarray(packed2), int(skew4), dev)
+        bb = _skewed(badbits, int(skew8), dev)
+        got = encode_dense(p2, bb, k, w)
+        exp = encode_dense_plain(p2, bb, k, w)
+        assert torch.equal(got, exp), case
+        if case in ("first", "last_window", "last_halo"):  # its windows only
+            n_bad = (got.view(rows, w) == torch.iinfo(got.dtype).max).sum(1)
+            assert n_bad.unique().tolist() == [min(k, w) if case == "last_window" else 1]
+
+
 _MERGE_KEYS_CASES = ["0", "1", "127", "1000", "300001", "tile-1", "tile", "tile+1",
                      "3tiles+1", "b_in_a", "all_equal", "a_below_b", "b_below_a",
                      "high_half"]
@@ -329,3 +390,84 @@ def test_dense_engine_on_cuda_matches_numpy(dev, monkeypatch, k):
     np.testing.assert_array_equal(got.codes, exp.codes)
     np.testing.assert_array_equal(got.counts, exp.counts)
     assert all(f.launches > n for f, n in before.items())
+
+
+def _weighted_keys(rng, n, dtype, zero_share):
+    """n keys from a small pool that reaches both ends of the biased range,
+    sentinels among them, with weights of which ``zero_share`` are 0."""
+    info = np.iinfo(np.int32 if dtype == torch.int32 else np.int64)
+    pool = np.concatenate([rng.integers(info.min, info.max, 300, dtype=np.int64),
+                           [info.min, info.max - 1, info.max]]).astype(info.dtype)
+    keys = pool[rng.integers(0, pool.size, n)]
+    weight = rng.integers(1, 90, n).astype(np.int32)
+    weight[rng.random(n) < zero_share] = 0
+    return torch.from_numpy(keys), torch.from_numpy(weight)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [0, 1, 5000, 300_001])
+def test_count_functions_on_cuda_match_cpu(dev, dtype, n):
+    """The five ``ops/count`` functions on the card (``torch.sort`` there,
+    K2 launched) against the same call on CPU tensors (K2's plain version):
+    zero weights, sentinels and runs whose weights are all zero."""
+    rng = np.random.default_rng(n + (dtype == torch.int32))
+    keys, weight = _weighted_keys(rng, n, dtype, 0.3)
+    valid = torch.from_numpy(rng.random(n) < 0.8)
+    s_keys, order = torch.sort(keys)
+    calls = [(merge_weighted, (keys, weight, valid)), (count_unique, (keys, valid)),
+             (count_runs, (keys, valid)), (merge_runs, (keys, weight)),
+             (merge_runs_presorted, (s_keys, weight[order]))]
+    for fn, args in calls:
+        before = rle_compact.launches
+        got = fn(*(a.to(dev) for a in args))
+        assert rle_compact.launches == before + 1, fn.__name__
+        for a, b in zip(got, fn(*args)):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b), fn.__name__
+
+
+@pytest.mark.parametrize("k", [5, 16, 21, 32])
+@pytest.mark.parametrize("max_parts", [2, 8])
+def test_device_table_on_cuda_matches_cpu(dev, k, max_parts):
+    """The LSM table on the card against the same adds on the CPU: raw keys
+    with unit weights and weighted parts, several compactions."""
+    rng = np.random.default_rng(k + max_parts)
+    dtype = torch.int32 if k <= 16 else torch.int64
+    on_card, on_cpu = DeviceTable(k, dev, max_parts), DeviceTable(k, torch.device("cpu"), max_parts)
+    before = rle_compact.launches
+    for i in range(11):
+        keys, weight = _weighted_keys(rng, 20_000, dtype, 0.2)
+        cnt = None if i % 2 else weight
+        on_card.add(keys.to(dev), None if cnt is None else cnt.to(dev), 20_000)
+        on_cpu.add(keys, cnt, 20_000)
+    got, exp = on_card.finalize(), on_cpu.finalize()
+    np.testing.assert_array_equal(got[0], exp[0])
+    np.testing.assert_array_equal(got[1], exp[1])
+    assert got[0].size > 0 and rle_compact.launches - before == -(-11 // max_parts)
+
+
+@pytest.mark.parametrize("dirty", [False, True], ids=["flat", "dense"])
+@pytest.mark.parametrize("k", [5, 16, 21, 32])
+def test_lsm_engine_on_cuda_matches_numpy(dev, monkeypatch, k, dirty):
+    """``use_epoch_sort=False`` on the card: the codec kernel of the route,
+    compactions by ``merge_runs`` (K2 launched), no part merge."""
+    monkeypatch.setenv("KRUST_PENDING_ENTRIES", "5000")
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, 60_000, dtype=np.uint8)
+    codes[rng.random(60_000) < (0.08 if dirty else 0.01)] = INVALID_CODE
+    s = ParsedStreams(codes, None, 1, 60_000)
+    codec = encode_dense if dirty else encode_windows
+    before = {f: f.launches for f in (codec, rle_compact, merge_sorted)}
+    cfg = EngineConfig(block_windows=256, batch_rows=8, device=dev, use_epoch_sort=False)
+    got = BatchEngine(cfg).count(s, k)
+    exp = NumpyEngine().count(s, k)
+    np.testing.assert_array_equal(got.codes, exp.codes)
+    np.testing.assert_array_equal(got.counts, exp.counts)
+    assert codec.launches > before[codec] and rle_compact.launches > before[rle_compact] + 1
+    assert merge_sorted.launches == before[merge_sorted]
+
+
+def test_count_functions_raise_on_mixed_devices(dev):
+    """No fallback: a CUDA key tensor with CPU weights raises."""
+    keys = torch.arange(8, dtype=torch.int64)
+    with pytest.raises((RuntimeError, ValueError)):
+        merge_runs(keys.to(dev), torch.ones(8, dtype=torch.int32))

@@ -6,8 +6,9 @@ plain PyTorch version) against ``krust_tpu``'s ``BatchEngine`` on XLA-CPU
 the fixtures, random FASTA/FASTQ with Ns, soft-masking and ``min_quality``,
 k in {5, 16, 21, 32}, and a forced multi-epoch count, on the flat path and
 on the dense path (dirty and quality-masked streams, block geometries the
-flat layout cannot hold, the 1/32 routing boundary). Full tables must be
-equal (integer work: tolerance 0). Also: the CLI as a black box, the port's
+flat layout cannot hold, the 1/32 routing boundary), and the LSM table path
+(``use_epoch_sort=False``) against the epoch table and ``krust_tpu``'s LSM
+engine on both routes. Full tables must be equal (integer work: tolerance 0). Also: the CLI as a black box, the port's
 import isolation from jax, engine selection, the feed thread, the table's
 entry limits and the key conversions.
 """
@@ -146,6 +147,104 @@ def test_multi_epoch_matches_jax(tmp_path, monkeypatch, k):
     assert len(merges) > 1
     np.testing.assert_array_equal(got.codes, exp.codes)
     np.testing.assert_array_equal(got.counts, exp.counts)
+
+
+# --- the LSM table path (use_epoch_sort=False) -----------------------------------
+
+
+def _lsm_stream(kind, rng, n):
+    """(codes, qual, min_quality, dense): clean, N-rich and quality-masked
+    streams on the flat route, and their dirty twins on the dense route."""
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    qual, min_quality = None, None
+    rate = {"clean": 0.0, "n-rich": 0.02, "n-rich-dense": 0.15}.get(kind)
+    if rate is not None:
+        codes[rng.random(n) < rate] = INVALID_CODE
+    else:  # quality-masked: 2% (flat) or 15% (dense) of the bases below Q20
+        low = 0.15 if kind == "quality-dense" else 0.02
+        qual = np.where(rng.random(n) < low, ord("#"), ord("I")).astype(np.uint8)
+        min_quality = 20
+    return codes, qual, min_quality, kind.endswith("dense")
+
+
+@pytest.mark.parametrize("k", [1, 16, 17, 32])
+@pytest.mark.parametrize(
+    "kind", ["clean", "n-rich", "quality", "n-rich-dense", "quality-dense"]
+)
+def test_lsm_table_engine_matches_epoch_table_and_jax(route, monkeypatch, kind, k):
+    """``use_epoch_sort=False`` (the LSM DeviceTable, several compactions)
+    equals the epoch-sort table equals ``krust_tpu``'s LSM engine, on both
+    codec routes."""
+    from krust_tpu.io.reader import ParsedStreams as JaxStreams
+    from krust_tpu.models.engines import BatchEngine as JaxEngine
+
+    rng = np.random.default_rng(500 + k + len(kind))
+    codes, qual, min_quality, dense = _lsm_stream(kind, rng, 9000)
+    if k == 32:
+        codes[:600] = np.where(codes[:600] == INVALID_CODE, INVALID_CODE, 2)  # bit 63 set
+    merges = []
+    real = table_mod.merge_runs
+    monkeypatch.setattr(table_mod, "merge_runs",
+                        lambda keys, cnt: merges.append(1) or real(keys, cnt))
+    got = {}
+    for epoch_sort in (False, True):
+        cfg = EngineConfig(block_windows=256, batch_rows=8, device="cpu",
+                           use_epoch_sort=epoch_sort)
+        got[epoch_sort] = BatchEngine(cfg).count(
+            ParsedStreams(codes, qual, 1, 9000), k, min_quality)
+    exp = JaxEngine(
+        jax_config.EngineConfig(block_windows=256, batch_rows=8, use_epoch_sort=False)
+    ).count(JaxStreams(codes, qual, 1, 9000), k, min_quality)
+    for table in got.values():
+        np.testing.assert_array_equal(table.codes, exp.codes)
+        np.testing.assert_array_equal(table.counts, exp.counts)
+    assert len(merges) >= 1  # only the LSM table merges runs
+    assert (route["dense"] > 0) == dense and (route["flat"] > 0) == (not dense)
+
+
+def test_lsm_table_engine_compacts_and_flushes(monkeypatch):
+    """Five batches at max_parts = 8 stay pending until finalize; a pending
+    limit below a batch compacts at every add; the window limit flushes the
+    LSM table to the host accumulator as it does the epoch table."""
+    rng = np.random.default_rng(23)
+    codes = rng.integers(0, 4, 9000, dtype=np.uint8)
+    s = ParsedStreams(codes, None, 1, 9000)
+    exp = NumpyEngine().count(s, 11)
+    cfg = EngineConfig(block_windows=256, batch_rows=8, device="cpu", use_epoch_sort=False)
+    merges = []
+    real = table_mod.merge_runs
+    monkeypatch.setattr(table_mod, "merge_runs",
+                        lambda keys, cnt: merges.append(keys.numel()) or real(keys, cnt))
+    for env, limit, n_merges in ((None, None, 1), ("1000", None, 5), (None, 4096, 5)):
+        merges.clear()
+        with monkeypatch.context() as m:
+            if env:
+                m.setenv("KRUST_PENDING_ENTRIES", env)
+            if limit:
+                m.setattr(table_mod, "EPOCH_WINDOW_LIMIT", limit)
+            got = BatchEngine(cfg).count(s, 11)
+        np.testing.assert_array_equal(got.codes, exp.codes)
+        np.testing.assert_array_equal(got.counts, exp.counts)
+        assert len(merges) == n_merges, (env, limit, merges)
+
+
+@pytest.mark.parametrize("k", [5, 16, 17, 32])
+def test_raw_parts_cross_with_zero_weight_padding(k):
+    """A ``krust_tpu`` raw part pads with zero-weight entries under any key;
+    the port's padding is the sentinel key with count 0, and back."""
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 1 << min(2 * k, 63), 300, dtype=np.uint64)
+    hi, lo = (codes >> np.uint64(32)).astype(np.uint32), codes.astype(np.uint32)
+    weight = rng.integers(0, 3, 300).astype(np.uint32)
+    keys, cnt = parts_from_numpy(hi, lo, weight, k, zero_is_padding=True)
+    assert torch.all((keys == sentinel(keys.dtype)) == (cnt == 0))
+    kept, _ = parts_from_numpy(hi, lo, weight, k)  # a compacted part: keys as they are
+    assert not torch.any(kept == sentinel(kept.dtype))
+    g_hi, g_lo, g_cnt = parts_to_numpy(keys, cnt, k, zero_is_padding=True)
+    live = weight > 0
+    np.testing.assert_array_equal(g_cnt, weight)
+    np.testing.assert_array_equal(g_lo, np.where(live, lo, 0))
+    np.testing.assert_array_equal(g_hi, np.where(live, hi, 0))
 
 
 # --- the dense path ------------------------------------------------------------
@@ -315,6 +414,7 @@ def test_import_leaves_jax_out():
     code = (
         "import sys\n"
         "import krust_tpu_torch, krust_tpu_torch.cli, krust_tpu_torch.ops.table\n"
+        "import krust_tpu_torch.ops.count\n"
         "import krust_tpu_torch.models.engines\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'krust_tpu' or m.startswith('krust_tpu.')]\n"

@@ -1,6 +1,7 @@
 """Where the time goes on krust_tpu_torch's main path, on one CUDA device.
 
     python3 tools/profile_torch_main_path.py [--k 21] [--mbases 512] [--seed 0] [--dirty]
+                                             [--lsm]
 
 Writes chip_smoke.py's workload (250 bp reads at 32x over a 16 Mbase genome,
 numpy from --seed) as FASTA under a temp directory, or with ``--dirty``
@@ -17,6 +18,9 @@ dense path), counts it once to warm up, then prints JSON lines:
   device time by kernel or copy name (every name, longest first),
   device-busy time (the union of kernel and copy intervals), wall time of
   the count and the device's idle share (1 - busy / wall).
+
+``--lsm`` counts through the LSM ``DeviceTable`` (``use_epoch_sort=False``:
+compactions by ``merge_runs``) in place of the epoch-sort table.
 
 ``KRUST_EPOCH_ENTRIES`` set below the input's window count splits the
 count into epochs, so the profile also shows the part merges.
@@ -56,6 +60,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dirty", action="store_true",
                     help="phase 7's dirty FASTQ at -Q 20 (the dense path)")
+    ap.add_argument("--lsm", action="store_true",
+                    help="the LSM DeviceTable (use_epoch_sort=False)")
     args = ap.parse_args()
     q = 20 if args.dirty else None
     if not torch.cuda.is_available():
@@ -65,7 +71,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    engine = BatchEngine(EngineConfig(device="cuda"))
+    engine = BatchEngine(EngineConfig(device="cuda", use_epoch_sort=not args.lsm))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "reads.fq" if args.dirty else "reads.fa")
         rates = dict(fastq=True, n_rate=0.02, lowq_rate=0.03) if args.dirty else {}
@@ -102,7 +108,7 @@ def main() -> int:
             "host_phases": {"read_s": t1 - t0, "parse_s": t2 - t1, "count_s": t3 - t2,
                             pack: t4 - t3},
             "spans_s": dict(spans), "k": args.k, "mbases": args.mbases,
-            "dirty": args.dirty, "gpu": gpu,
+            "dirty": args.dirty, "lsm": args.lsm, "gpu": gpu,
         }), flush=True)
 
         from torch.profiler import ProfilerActivity, profile
@@ -136,7 +142,8 @@ def main() -> int:
             "device": [{"name": n[:90], "ms": v[0] / 1e3, "calls": v[1]} for n, v in top],
             "device_busy_s": busy_us / 1e6, "wall_s": wall,
             "idle_share": 1 - busy_us / 1e6 / wall,
-            "k": args.k, "mbases": args.mbases, "dirty": args.dirty, "gpu": gpu,
+            "k": args.k, "mbases": args.mbases, "dirty": args.dirty, "lsm": args.lsm,
+            "gpu": gpu,
         }), flush=True)
     return 0
 
