@@ -1,6 +1,6 @@
 """Smoke test of krust_tpu_torch on one NVIDIA GPU: kernels, then the counting paths.
 
-    python3 chip_smoke.py [--seed N] [--phases 1,2,3,4,5,6,7,8]
+    python3 chip_smoke.py [--seed N] [--phases 1,2,3,4,5,6,7,8,9]
 
 Needs a CUDA device and ``nvcc`` (the kernels build from
 ``krust_tpu_torch/csrc`` at first use, one nvcc per source, in parallel).
@@ -51,7 +51,19 @@ Phases, printing JSON lines:
    counters set to 0 just before (K1 and K2 must launch, ``merge_sorted``
    must not), timed, with peak device memory; then 64 Mbases at k = 16
    (int32 keys) and a dirty 8 Mbase FASTQ at -Q 20 (K4 into the
-   ``DeviceTable``). Every table equal to the native core's.
+   ``DeviceTable``). Every table equal to the native core's;
+9. the sharded path (``api.count_kmers_sharded_result``) in a world of one
+   on phase 3's file at k = 21: twice with no process group (the exchange
+   runs no collective), timed, with peak device memory, between two plain
+   counts of the same file (``api.count_with_input``; the order plain,
+   sharded, sharded, plain), then twice inside a
+   one-rank NCCL group (``file://`` init in the temporary directory,
+   destroyed after), where the owner order, the split sizes and both
+   ``all_to_all_single`` payloads run on the card; its ``wire_bytes`` and
+   ``shard_sizes`` are printed. Counters set to 0 just before each count:
+   K1 and K2 must launch, K4 must not. Then a dirty 8 Mbase FASTQ at -Q 20
+   in both settings (K4 must launch, K1 must not). Every table equal to
+   the native core's.
 
 The second-to-last line is the kernel table (launches from each kernel's
 phase, times from phase 2), the last line the result. Any failed check
@@ -73,7 +85,7 @@ import numpy as np
 READ_LEN = 250
 GENOME = 16_000_000
 MAIN_BASES = 512_000_000
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9}
 
 #: the card's peaks the bound is taken against (NVIDIA H100 SXM data sheet):
 #: HBM bytes/s, and the float32 rate outside the tensor cores as the rate
@@ -466,9 +478,11 @@ _ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
 def write_reads(path, rng, n_bases, genome_len, fastq=False, n_rate=0.0,
-                 soft_rate=0.0, lowq_rate=0.0):
-    """Reads of READ_LEN bases at random positions of a random genome."""
-    genome = rng.integers(0, 4, size=genome_len, dtype=np.uint8)
+                 soft_rate=0.0, lowq_rate=0.0, genome=None):
+    """Reads of READ_LEN bases at random positions of a random genome (or of
+    ``genome``, base codes 0-3)."""
+    if genome is None:
+        genome = rng.integers(0, 4, size=genome_len, dtype=np.uint8)
     n_reads = n_bases // READ_LEN
     off = np.arange(READ_LEN)
     with open(path, "wb") as f:
@@ -792,19 +806,26 @@ def _phase7(rng, gpu, tmp) -> dict:
     return first
 
 
-def _phase8(rng, gpu, tmp, main) -> None:
+def _main_file(rng, tmp, main):
+    """Phase 3's file and its native-core table: ``main`` when phase 3 kept
+    them, else made anew."""
+    if main is not None:
+        return main
+    path = os.path.join(tmp, "reads.fa")
+    write_reads(path, rng, MAIN_BASES, GENOME)
+    return path, _native_counts(path, 21)
+
+
+def _phase8(rng, gpu, tmp, main):
     """The LSM table path on the card: phase 3's workload (its file and
     native-core table, made anew when phase 3 did not run), then int32 keys
-    and the dense route."""
+    and the dense route. Returns phase 3's file and table for phase 9."""
     import torch
 
     from krust_tpu_torch.utils.config import EngineConfig
 
     lsm = EngineConfig(use_epoch_sort=False)
-    if main is None:
-        path = os.path.join(tmp, "reads.fa")
-        write_reads(path, rng, MAIN_BASES, GENOME)
-        main = path, _native_counts(path, 21)
+    main = _main_file(rng, tmp, main)
     path, exp = main
     runs = []
     for _ in range(2):
@@ -825,7 +846,6 @@ def _phase8(rng, gpu, tmp, main) -> None:
     _emit({"phase": 8, "table": "DeviceTable", "k": 21, "bases": MAIN_BASES,
            "read_len": READ_LEN, "genome": GENOME, "distinct": exp.distinct,
            "total": exp.total, "equal_to_native": True, "runs": runs, "gpu": gpu})
-    os.unlink(path)
 
     cases = [("reads64.fa", 64_000_000, GENOME, 16, None, {}),
              ("dirty8.fq", 8_000_000, 1_000_000, 21, 20,
@@ -848,6 +868,78 @@ def _phase8(rng, gpu, tmp, main) -> None:
                "distinct": got.distinct, "equal_to_native": True, "seconds": sec,
                "launches": launches, "gpu": gpu})
         os.unlink(path)
+    return main
+
+
+def _phase9(rng, gpu, tmp, main) -> None:
+    """The sharded path in a world of one: phase 3's file, then a dirty
+    FASTQ, each with no process group and inside a one-rank NCCL group."""
+    import torch
+    import torch.distributed as dist
+
+    from krust_tpu_torch import api
+    from krust_tpu_torch.parallel.mesh import init_distributed
+    from krust_tpu_torch.utils import tracing
+
+    path, exp = _main_file(rng, tmp, main)
+    dirty = os.path.join(tmp, "dirty9.fq")
+    write_reads(dirty, rng, 8_000_000, 1_000_000, fastq=True, n_rate=0.05,
+                soft_rate=0.05, lowq_rate=0.02)
+    exp_dirty = _native_counts(dirty, 21, 20)
+    seen: dict = {}
+
+    def collect(kind, name, fields):
+        if name in ("sharded_exchange", "shard_sizes"):
+            seen.setdefault(name, []).append(fields)
+
+    def count(file, q, table, group, codec, other, entry="sharded"):
+        seen.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        if entry == "sharded":
+            got = api.count_kmers_sharded_result(file, 21, min_quality=q)
+        else:
+            got = _port_counts(file, 21, min_quality=q)
+        sec = time.perf_counter() - t0
+        launches = _launches()
+        if launches[codec] <= 0 or launches["rle_compact"] <= 0 or launches[other] != 0:
+            raise AssertionError(f"phase 9 {group} {entry} {file}: {launches}")
+        if bool(seen.get("sharded_exchange")) != (group == "nccl"):
+            raise AssertionError(f"phase 9 {group}: exchanges {seen}")
+        _assert_equal(got, table, f"phase 9 {group} {entry} {os.path.basename(file)}")
+        return {"entry": entry, "seconds": sec,
+                "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                "launches": launches, "exchanges": seen.get("sharded_exchange", []),
+                "shard_sizes": [e["sizes"] for e in seen.get("shard_sizes", [])]}
+
+    tracing.add_collector(collect)
+    try:
+        for group in ("none", "nccl"):
+            if group == "nccl":
+                init_distributed(f"file://{os.path.join(tmp, 'pg')}", rank=0, world_size=1)
+            try:
+                order = (("plain", "sharded", "sharded", "plain") if group == "none"
+                         else ("sharded", "sharded"))
+                runs = [count(path, None, exp, group, "encode_windows", "encode_dense", entry)
+                        for entry in order]
+                for r in runs:
+                    r["mbases_per_s"] = MAIN_BASES / 1e6 / r["seconds"]
+                _emit({"phase": 9, "process_group": group, "k": 21, "bases": MAIN_BASES,
+                       "read_len": READ_LEN, "genome": GENOME, "distinct": exp.distinct,
+                       "equal_to_native": True, "runs": runs, "gpu": gpu})
+                run = count(dirty, 20, exp_dirty, group, "encode_dense", "encode_windows")
+                _emit({"phase": 9, "process_group": group, "k": 21, "bases": 8_000_000,
+                       "min_quality": 20, "invalid_share": "~0.07",
+                       "distinct": exp_dirty.distinct, "equal_to_native": True, **run,
+                       "gpu": gpu})
+            finally:
+                if group == "nccl":
+                    dist.destroy_process_group()
+    finally:
+        tracing.remove_collector(collect)
+    os.unlink(dirty)
 
 
 #: per kernel wrapper: its source, the TPU kernel it replaces, the phase
@@ -913,7 +1005,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         main = None
         if 3 in phases:
-            main = _phase3(rng, gpu, tmp, keep=8 in phases)
+            main = _phase3(rng, gpu, tmp, keep=bool({8, 9} & phases))
         if 4 in phases:
             launches[4] = _phase4(rng, gpu, tmp)
         if 5 in phases:
@@ -923,7 +1015,9 @@ def main() -> int:
         if 7 in phases:
             launches[7] = _phase7(rng, gpu, tmp)
         if 8 in phases:
-            _phase8(rng, gpu, tmp, main)
+            main = _phase8(rng, gpu, tmp, main)
+        if 9 in phases:
+            _phase9(rng, gpu, tmp, main)
 
     kernels = []
     for name, (source, replaces, phase, redesigned) in _REPLACES.items():

@@ -15,6 +15,8 @@ Architecture (GPU):
   codec kernel        ->  one biased canonical key per window (sentinel if bad)
   epoch sort + RLE    ->  compacted distinct (key, count) parts on the device
   merge kernel + RLE  ->  one part; copied to the host as u64 (code, count)
+  several GPUs        ->  one process each; the parts exchange by hash range
+                          (parallel/: torch.distributed all_to_all_single)
 
 This package imports torch and never jax or krust_tpu.
 """
@@ -42,6 +44,8 @@ from .api import (
     count_kmers_from_sequences_packed,
     count_kmers_mmap,
     count_kmers_sniffed,
+    count_kmers_sharded,
+    count_kmers_sharded_result,
     count_with_input,
     run,
     run_with_options,
@@ -106,6 +110,8 @@ __all__ = [
     "count_kmers_stdin_packed",
     "count_kmers_stdin_with_format",
     "count_kmers_sniffed",
+    "count_kmers_sharded",
+    "count_kmers_sharded_result",
     "count_kmers_from_sequences",
     "count_kmers_from_sequences_packed",
     "count_kmers_mmap",

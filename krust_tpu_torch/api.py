@@ -1,8 +1,7 @@
 """Public counting APIs (reference: src/run.rs:66-426, src/streaming.rs:95-509).
 
-Every reference entry point has an equivalent here with the same semantics
-(the multi-device entry points of ``krust_tpu`` are not ported yet:
-ROADMAP A10); string-keyed functions return ``dict[str, int]`` of canonical k-mer ->
+Every reference entry point has an equivalent here with the same semantics;
+string-keyed functions return ``dict[str, int]`` of canonical k-mer ->
 count, packed variants return ``dict[int, int]`` keyed by the 2-bit packed
 canonical code.
 """
@@ -211,6 +210,44 @@ def count_kmers_sniffed(path: str | os.PathLike, k: int) -> dict[str, int]:
     resolved = SequenceFormat.AUTO.resolve_with_content(path, data)
     streams = parse_to_streams(data, resolved)
     return count_streams(streams, kk).to_string_dict()
+
+
+def count_kmers_sharded(
+    path: str | os.PathLike,
+    k: int,
+    fmt: SequenceFormat = SequenceFormat.AUTO,
+    min_quality: int | None = None,
+    mesh=None,
+    config: EngineConfig | None = None,
+) -> dict[str, int]:
+    """Count across the GPUs of a mesh, one process per GPU.
+
+    The distributed entry point (new capability — the reference is
+    single-process; SURVEY.md §5): each rank counts its own input on its own
+    device, and the rank-local tables merge by a hash-sharded all-to-all.
+    Every rank calls this with its own file; each gets the exact counts of
+    its own hash range, disjoint from the others' (in a world of one, the
+    whole table). For several GPUs start one process per GPU
+    (``torchrun --nproc-per-node N``) and call
+    :func:`krust_tpu_torch.parallel.mesh.init_distributed` first.
+    """
+    counts = count_kmers_sharded_result(path, k, fmt, min_quality, mesh, config)
+    return counts.to_string_dict()
+
+
+def count_kmers_sharded_result(
+    path: str | os.PathLike,
+    k: int,
+    fmt: SequenceFormat = SequenceFormat.AUTO,
+    min_quality: int | None = None,
+    mesh=None,
+    config: EngineConfig | None = None,
+) -> PackedCounts:
+    """Packed-result variant of :func:`count_kmers_sharded`."""
+    from .parallel.sharded import count_sharded
+
+    kk, streams = _read_streams(path, k, fmt)
+    return count_sharded(streams, kk, min_quality, mesh, config)
 
 
 # --- packed + streaming API (reference: src/streaming.rs) ---------------------------

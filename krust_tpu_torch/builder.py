@@ -2,8 +2,7 @@
 
 The counting methods reach the same engines as :mod:`krust_tpu_torch.api`:
 the device engine on the card unless ``engine_config`` asks for the CPU
-(``EngineConfig(device="cpu")``). The multi-device ``count_sharded`` of
-``krust_tpu`` is not ported yet (ROADMAP A10).
+(``EngineConfig(device="cpu")``).
 
 Example::
 
@@ -140,6 +139,20 @@ class KmerCounter:
             self._min_quality,
             api._streaming_config(self._config),
         ).to_string_dict()
+        return self._filtered(counts)
+
+    def count_sharded(self, path: str | os.PathLike, mesh=None) -> dict[str, int]:
+        """Count across the GPUs of a mesh, one process per GPU: this
+        rank's hash range of the exact table. See
+        :func:`krust_tpu_torch.api.count_kmers_sharded`."""
+        counts = api.count_kmers_sharded(
+            path,
+            self._require_k(),
+            self._input_format,
+            self._min_quality,
+            mesh,
+            self._config,
+        )
         return self._filtered(counts)
 
     def count_mmap(self, path: str | os.PathLike) -> dict[str, int]:

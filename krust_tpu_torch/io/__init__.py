@@ -1,7 +1,9 @@
-"""Input abstraction, format detection, and sequence readers."""
+"""Input abstraction, format detection, sequence readers and the mapped
+FASTA file."""
 
 from .format import SequenceFormat
 from .input import Input
+from .mmapfile import MmapFasta
 from .reader import (
     SequenceWithQuality,
     read_records,
@@ -11,6 +13,7 @@ from .reader import (
 
 __all__ = [
     "Input",
+    "MmapFasta",
     "SequenceFormat",
     "SequenceWithQuality",
     "read_records",

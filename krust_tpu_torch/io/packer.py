@@ -195,6 +195,14 @@ def pack2_full(codes: np.ndarray) -> np.ndarray:
     return (q[:, 0] << 6) | (q[:, 1] << 4) | (q[:, 2] << 2) | q[:, 3]
 
 
+def batch_count(n_bases: int, k: int, block_windows: int, batch_rows: int) -> int:
+    """How many batches :func:`flat_batches` and :func:`pack_buffer_2bit`
+    cut a stream of ``n_bases`` into: at least one, even for no window."""
+    t = max(n_bases - k + 1, 0)
+    n_blocks = -(-t // block_windows)
+    return -(-max(n_blocks, 1) // batch_rows)
+
+
 def _flat_eligible(k: int, w: int, batch_rows: int) -> bool:
     """Geometry preconditions of the flat path.
 

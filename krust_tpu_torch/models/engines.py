@@ -408,14 +408,23 @@ class BatchEngine:
         table = EpochTable if self.config.use_epoch_sort else DeviceTable
         return table(k, self.device)
 
-    def _feed_streams(self, streams, k, min_quality, table, epochs, on_windows) -> None:
+    def _feed_streams(
+        self, streams, k, min_quality, table, epochs, on_windows, charge=None,
+        batch_span="encode_count_batch",
+    ) -> int:
         """Feed one parsed stream's batches into ``table`` (shared by the
-        eager and chunked ingest paths).
+        eager and chunked ingest paths and the sharded count); returns the
+        number of batches.
 
         The flat path while invalid bases are sparse (K1 on stream slices
         plus invalid positions); the dense path (K4 on haloed 2-bit rows
         plus an invalid bitmask) for dirtier streams and for block
         geometries the flat layout cannot hold, as ``krust_tpu`` routes.
+        Each batch charges ``charge`` windows (default: its own rows x
+        ``block_windows``) to the table's epoch; ``table.finalize()`` is
+        appended to ``epochs`` before a charge would reach
+        ``EPOCH_WINDOW_LIMIT``. Each batch's encode and add is one
+        ``batch_span``.
         """
         from ..io.packer import flat_batches, pack_buffer_2bit
         from ..ops import table as table_mod
@@ -470,15 +479,18 @@ class BatchEngine:
 
         # the LSM table takes weights beside the keys: None, one a window
         weights = () if cfg.use_epoch_sort else (None,)
+        n_batches = 0
         with _Feed(batches, stage, cfg.feed_depth) as staged:
             for arrays, batch in staged:
                 rows, windows = rows_and_windows(batch)
-                batch_windows = rows * batch.block_windows
+                batch_windows = charge or rows * batch.block_windows
                 if table.windows_this_epoch + batch_windows >= table_mod.EPOCH_WINDOW_LIMIT:
                     epochs.append(table.finalize())  # int32 count headroom
-                with span("encode_count_batch", rows=rows):
+                with span(batch_span, rows=rows):
                     table.add(step(arrays, batch), *weights, batch_windows)
                 on_windows(windows)
+                n_batches += 1
+        return n_batches
 
     @staticmethod
     def _merge_epochs(epochs, k) -> PackedCounts:

@@ -16,10 +16,12 @@ Batches append weighted parts (raw keys count 1 each); when ``max_parts``
 parts or the pending-entry limit are reached, the parts and the compacted
 table concatenate and re-merge with :func:`~krust_tpu_torch.ops.count.
 merge_runs` (``torch.sort`` with the weights following, then the RLE
-kernel). Every window is sorted once, the table once per compaction. It is
-the state machine the sharded tables build on.
+kernel). Every window is sorted once, the table once per compaction.
 
-``finalize`` copies the first n entries of the table to the host.
+``_finish`` compacts either table to one device part; ``finalize`` copies
+that part's first n entries to the host. The sharded tables
+(:mod:`krust_tpu_torch.parallel.sharded`) are these tables per rank, and
+exchange the finished part before the pull.
 
 Kept from the TPU engine: the deferred n-sync (a sort's ``n_unique`` stays
 on the device until the next flush or compaction needs it, so batches
@@ -43,7 +45,7 @@ import torch
 from ..utils.numutil import round_pow2 as _round_pow2
 from ..utils.tracing import span, trace_event
 from .count import merge_runs
-from .keys import keys_to_codes
+from .keys import key_dtype, keys_to_codes
 from .merge import merge_sorted
 from .rle import rle_compact
 
@@ -118,16 +120,14 @@ def _pull_table(t_keys, t_cnt, n: int, k: int) -> tuple[np.ndarray, np.ndarray]:
     return keys_to_codes(keys, k), counts.astype(np.uint64)
 
 
-def _empty_table() -> tuple[np.ndarray, np.ndarray]:
-    return np.zeros(0, np.uint64), np.zeros(0, np.uint64)
+def _no_part(k: int, device: torch.device):
+    """The finished part of a table that saw no window: (keys, counts, 0)."""
+    return (torch.empty(0, dtype=key_dtype(k), device=device),
+            torch.empty(0, dtype=torch.int32, device=device), 0)
 
 
 class DeviceTable:
-    """LSM accumulator of weighted (key, count) parts on one device.
-
-    The sharded tables reuse this add / resolve / compact state machine by
-    overriding the ``_prepare_part`` / ``_do_merge`` / ``_read_n`` hooks.
-    """
+    """LSM accumulator of weighted (key, count) parts on one device."""
 
     #: merge-input entries (pending parts + compacted table) that force a
     #: compaction, at _REFERENCE_MEM: it bounds the sort's working set.
@@ -154,25 +154,11 @@ class DeviceTable:
         self._merge = None
         self.windows_this_epoch = 0
 
-    # --- hooks ------------------------------------------------------------
-
-    def _prepare_part(self, keys, cnt):
-        return keys.reshape(-1), None if cnt is None else cnt.reshape(-1)
-
-    def _do_merge(self, keys, cnt):
-        return merge_runs(keys, cnt)
-
-    def _read_n(self, n_dev) -> int:
-        return int(n_dev.item())
-
-    # --- LSM state machine --------------------------------------------------
-
     def add(self, keys: torch.Tensor, cnt: torch.Tensor | None, n_windows: int) -> None:
         """Append one batch's keys with their int32 weights (None: every
         entry counts 1; a sentinel key or a zero weight is padding)."""
-        part = self._prepare_part(keys, cnt)
-        self._parts.append(part)
-        self._pending += part[0].numel()
+        self._parts.append((keys.reshape(-1), None if cnt is None else cnt.reshape(-1)))
+        self._pending += keys.numel()
         self.windows_this_epoch += n_windows
         # Parts batch up before a merge: every window is sorted once either
         # way, so fewer merges mean fewer sorts of the table and fewer
@@ -193,7 +179,7 @@ class DeviceTable:
             return
         m_keys, m_cnt, n_dev = self._merge
         self._merge = None
-        n = self._read_n(n_dev)
+        n = int(n_dev.item())
         trace_event("table_compacted", unique_kmers=n)
         self._table = _part(m_keys, m_cnt, n)
 
@@ -219,18 +205,21 @@ class DeviceTable:
             self._parts = []
             self._pending = 0
             self._table = None
-            self._merge = self._do_merge(keys, cnt)
+            self._merge = merge_runs(keys, cnt)
 
-    def finalize(self) -> tuple[np.ndarray, np.ndarray]:
-        """Compact and copy the distinct table to the host: (codes u64,
-        counts u64), sorted by code. The table is empty afterwards."""
+    def _finish(self):
+        """Compact to one device part, (keys, counts, n), distinct keys
+        ascending in its first n entries. The table is empty afterwards."""
         self._compact()
         self._resolve()
         table = self._table
         self._reset()
-        if table is None or table[2] == 0:
-            return _empty_table()
-        return _pull_table(*table, self._k)
+        return table if table is not None else _no_part(self._k, self._device)
+
+    def finalize(self) -> tuple[np.ndarray, np.ndarray]:
+        """Compact and copy the distinct table to the host: (codes u64,
+        counts u64), sorted by code. The table is empty afterwards."""
+        return _pull_table(*self._finish(), self._k)
 
 
 class EpochTable:
@@ -322,14 +311,17 @@ class EpochTable:
             runs = nxt
         self._compacted = runs
 
-    def finalize(self) -> tuple[np.ndarray, np.ndarray]:
-        """Flush, merge to one part and copy it to the host:
-        (codes u64, counts u64), sorted by code."""
+    def _finish(self):
+        """Flush and merge to one device part, (keys, counts, n). The
+        table is empty afterwards."""
         self._flush_raw()
         self._resolve_epoch()
         self._merge_compacted()
         compacted = self._compacted
         self._reset()
-        if not compacted:
-            return _empty_table()
-        return _pull_table(*compacted[0], self._k)
+        return compacted[0] if compacted else _no_part(self._k, self._device)
+
+    def finalize(self) -> tuple[np.ndarray, np.ndarray]:
+        """Flush, merge to one part and copy it to the host:
+        (codes u64, counts u64), sorted by code."""
+        return _pull_table(*self._finish(), self._k)

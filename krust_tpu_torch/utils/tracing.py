@@ -69,12 +69,15 @@ def init_tracing(level: str | None = None) -> None:
 @contextlib.contextmanager
 def span(name: str, **fields):
     """A timed phase span (reference span names: read_sequences,
-    process_sequences, unpack_kmers, ...). Also a profiler range."""
+    process_sequences, unpack_kmers, ...). Also a profiler range.
+
+    Yields its fields: a field known only inside the span is set there and
+    reaches the collectors at its end."""
     start = time.perf_counter()
     logger.info("enter %s %s", name, fields if fields else "")
     try:
         with torch.profiler.record_function(name):
-            yield
+            yield fields
     finally:
         elapsed = time.perf_counter() - start
         logger.info("exit %s elapsed=%.6fs", name, elapsed)

@@ -16,7 +16,7 @@ import torch
 from krust_tpu_torch.io.packer import pack2_full, pack_buffer_2bit
 from krust_tpu_torch.io.reader import ParsedStreams
 from krust_tpu_torch.kmer import INVALID_CODE
-from krust_tpu_torch.models.engines import BatchEngine, NumpyEngine
+from krust_tpu_torch.models.engines import BatchEngine, NativeEngine, NumpyEngine
 from krust_tpu_torch.ops.fused_codec import TAIL_BYTES, encode_windows, encode_windows_plain
 from krust_tpu_torch.ops.codec import encode_dense, encode_dense_plain
 from krust_tpu_torch.ops.count import (
@@ -26,7 +26,11 @@ from krust_tpu_torch.ops.merge import (
     merge_sorted, merge_sorted_keys, merge_sorted_keys_plain, merge_sorted_plain,
 )
 from krust_tpu_torch.ops.rle import rle_compact, rle_compact_plain
+from krust_tpu_torch.ops import table as table_mod
 from krust_tpu_torch.ops.table import DeviceTable
+from krust_tpu_torch.parallel.mesh import init_distributed
+from krust_tpu_torch.parallel.sharded import count_sharded
+from krust_tpu_torch.utils import tracing
 from krust_tpu_torch.utils.config import EngineConfig
 
 pytestmark = pytest.mark.cuda
@@ -66,7 +70,7 @@ def _invalid_stream(case, rng, k, n_bases, tile):
 
 
 @pytest.mark.parametrize("case", ["dirty", "clean", "all_invalid", "tile_edges", "unaligned"])
-@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 15, 16, 17, 21, 31, 32])
+@pytest.mark.parametrize("k", range(1, 33))
 def test_codec_kernel_matches_plain(dev, k, case):
     """K1 over three whole tiles and a partial one: 1% invalid bases, none,
     every one, invalid runs across tile edges with ``covered`` at an edge,
@@ -232,7 +236,7 @@ def test_engine_on_cuda_matches_numpy(dev, monkeypatch, k):
     assert all(f.launches > n for f, n in before.items())
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 15, 16, 17, 21, 24, 31, 32])
+@pytest.mark.parametrize("k", range(1, 33))
 @pytest.mark.parametrize("w", [8, 256], ids=["w8", "w256"])
 def test_dense_codec_kernel_matches_plain(dev, k, w):
     """K4 at edge k and widths, on exact-size tensors (the last group of the
@@ -471,3 +475,56 @@ def test_count_functions_raise_on_mixed_devices(dev):
     keys = torch.arange(8, dtype=torch.int64)
     with pytest.raises((RuntimeError, ValueError)):
         merge_runs(keys.to(dev), torch.ones(8, dtype=torch.int32))
+
+
+def _sharded_stream(k, dirty, n=60_000):
+    rng = np.random.default_rng(900 + k + dirty)
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    codes[rng.random(n) < (0.08 if dirty else 0.01)] = INVALID_CODE
+    if k == 32:  # canonical 32-mers with bit 63 set
+        codes[:600] = np.where(codes[:600] == INVALID_CODE, INVALID_CODE, 2)
+    return ParsedStreams(codes, None, 1, n)
+
+
+@pytest.mark.parametrize("dirty", [False, True], ids=["flat", "dense"])
+@pytest.mark.parametrize("k", range(1, 33))
+def test_sharded_count_on_cuda_matches_native(dev, monkeypatch, k, dirty):
+    """``count_sharded`` in a world of one on the card at every k, on both
+    routes, with an exchange every two batches: the route's codec kernel
+    and K2 launched, the table equal to the native core's."""
+    monkeypatch.setattr(table_mod, "EPOCH_WINDOW_LIMIT", 3 * 8 * 256)
+    s = _sharded_stream(k, dirty)
+    codec = encode_dense if dirty else encode_windows
+    other = encode_windows if dirty else encode_dense
+    before = {f: f.launches for f in (codec, other, rle_compact)}
+    cfg = EngineConfig(block_windows=256, batch_rows=8, device=dev)
+    got = count_sharded(s, k, config=cfg)
+    exp = NativeEngine().count(s, k)
+    np.testing.assert_array_equal(got.codes, exp.codes)
+    np.testing.assert_array_equal(got.counts, exp.counts)
+    assert codec.launches > before[codec] and other.launches == before[other]
+    assert rle_compact.launches > before[rle_compact]
+
+
+@pytest.mark.parametrize("k", [5, 21])
+def test_sharded_exchange_in_a_one_rank_nccl_group(dev, tmp_path, k):
+    """With a process group the exchange runs on the card: owner order, the
+    split sizes and both payloads through NCCL, then ``merge_runs``."""
+    spans = []
+
+    def collect(kind, name, fields):
+        if name == "sharded_exchange":
+            spans.append(fields)
+
+    s = _sharded_stream(k, False)
+    init_distributed(f"file://{tmp_path / 'pg'}", rank=0, world_size=1)
+    tracing.add_collector(collect)
+    try:
+        got = count_sharded(s, k, config=EngineConfig(block_windows=256, batch_rows=8))
+    finally:
+        tracing.remove_collector(collect)
+        torch.distributed.destroy_process_group()
+    exp = NativeEngine().count(s, k)
+    np.testing.assert_array_equal(got.codes, exp.codes)
+    np.testing.assert_array_equal(got.counts, exp.counts)
+    assert [x["wire_bytes"] for x in spans] == [got.distinct * (8 if k <= 16 else 12)]

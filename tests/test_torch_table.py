@@ -212,9 +212,14 @@ def test_add_defers_the_sync(monkeypatch):
     """``add`` never reads n back itself: the merge it dispatches is resolved
     by the next compaction or by ``finalize``."""
     reads = []
-    real = DeviceTable._read_n
-    monkeypatch.setattr(DeviceTable, "_read_n",
-                        lambda self, n_dev: reads.append(1) or real(self, n_dev))
+    real = DeviceTable._resolve
+
+    def resolve(self):  # reads n back exactly when a merge is in flight
+        if self._merge is not None:
+            reads.append(1)
+        real(self)
+
+    monkeypatch.setattr(DeviceTable, "_resolve", resolve)
     table = DeviceTable(21, CPU, max_parts=2)
     keys = torch.arange(64, dtype=torch.int64)
     table.add(keys, None, 64)
