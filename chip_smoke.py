@@ -1,6 +1,6 @@
 """Smoke test of krust_tpu_torch on one NVIDIA GPU: kernels, then the counting paths.
 
-    python3 chip_smoke.py [--seed N] [--phases 1,2,3,4,5,6,7,8,9]
+    python3 chip_smoke.py [--seed N] [--phases 1,2,3,4,5,6,7,8,9,10]
 
 Needs a CUDA device and ``nvcc`` (the kernels build from
 ``krust_tpu_torch/csrc`` at first use, one nvcc per source, in parallel).
@@ -63,7 +63,28 @@ Phases, printing JSON lines:
    ``shard_sizes`` are printed. Counters set to 0 just before each count:
    K1 and K2 must launch, K4 must not. Then a dirty 8 Mbase FASTQ at -Q 20
    in both settings (K4 must launch, K1 must not). Every table equal to
-   the native core's.
+   the native core's;
+10. BASELINE.md's five configurations and the streaming path, through the
+   entry points users call. Every CLI run is the port's CLI entry point
+   (``krust_tpu_torch.cli:main``, the ``kmix-torch`` script) in a child
+   process with KRUST_ENGINE=device, held byte for byte against the same
+   CLI with KRUST_ENGINE=native (the native C++ core); each child reports
+   its runs' kernel launches (counters at 0 before each run) and device
+   peak, the parent its peak RSS (``os.wait4``). C1: the six
+   ``tests/fixtures`` files x k in {1, 5, 21, 32} x the four formats at
+   ``--min-count 2`` (-Q 20 for FASTQ), 96 runs a child. C2: 64 Mbases of
+   phase 7's dirty FASTQ recipe at 32x, k = 21, ``-Q 20 -f tsv`` (K4 must
+   launch). C3: a genome-shaped FASTA of C3_BASES (24 chromosomes in
+   GRCh38's proportions, half soft-masked, 1% N runs) at k = 31 through
+   stdin (the chunked path, 256 MiB chunks), ``-f histogram``. C4: phase
+   3's file, ``--save`` a ``.kmix`` (equal to the bytes of the index of the
+   native core's table), 10 ``query`` runs and 100k ``load_index(...).get``.
+   C5: phase 3's recipe as a 128 Mbase gzip FASTQ through
+   ``api.count_kmers_streaming_packed``, then ``count_kmers_sharded_result``
+   in a one-rank NCCL group, in this process. S: phase 4's 1.25-epoch file
+   (kept from phase 4, else made anew) through
+   ``api.count_kmers_streaming_packed`` in a child: 256 MiB chunks that
+   cross an epoch flush, so K1, K2 and K3 must launch.
 
 The second-to-last line is the kernel table (launches from each kernel's
 phase, times from phase 2), the last line the result. Any failed check
@@ -85,7 +106,12 @@ import numpy as np
 READ_LEN = 250
 GENOME = 16_000_000
 MAIN_BASES = 512_000_000
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
+#: phase 10's inputs: C2's dirty FASTQ, C3's genome-shaped FASTA (it stands
+#: in for a 3.1 Gbase assembly; cut for the phase's time), C5's gzip FASTQ
+C2_BASES = 64_000_000
+C3_BASES = 1_000_000_000
+C5_BASES = 128_000_000
 
 #: the card's peaks the bound is taken against (NVIDIA H100 SXM data sheet):
 #: HBM bytes/s, and the float32 rate outside the tensor cores as the rate
@@ -604,19 +630,35 @@ def _phase3(rng, gpu, tmp, keep=False):
     return None
 
 
-def _phase4(rng, gpu, tmp) -> dict:
-    """The clean main path at the default epoch size; returns its launch
-    counts."""
+def _write_main4(rng, tmp):
+    """Phase 4's file: 1.25 default epochs of reads at 32x; returns (path,
+    bases, genome, epoch entries)."""
     import torch
 
     from krust_tpu_torch.ops.table import epoch_entry_limit
 
-    dev = torch.device("cuda", 0)
-    limit = epoch_entry_limit(dev)
+    limit = epoch_entry_limit(torch.device("cuda", 0))
     bases = limit * 5 // 4 // READ_LEN * READ_LEN
     genome = bases // 32
     path = os.path.join(tmp, "reads_main.fa")
     write_reads(path, rng, bases, genome)
+    return path, bases, genome, limit
+
+
+def _main4_file(rng, tmp):
+    """Phase 4's file and its native-core table, made anew."""
+    path = _write_main4(rng, tmp)[0]
+    return path, _native_counts(path, 21)
+
+
+def _phase4(rng, gpu, tmp, keep=False):
+    """The clean main path at the default epoch size; returns its launch
+    counts and, with ``keep``, its file and the native core's table (else
+    None)."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    path, bases, genome, limit = _write_main4(rng, tmp)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
@@ -639,8 +681,10 @@ def _phase4(rng, gpu, tmp) -> dict:
            "peak_device_bytes": peak,
            "device_total_bytes": torch.cuda.mem_get_info(dev)[1],
            "launches": launches, "native_core_s": native_s, "gpu": gpu})
+    if keep:
+        return launches, (path, exp)
     os.unlink(path)
-    return launches
+    return launches, None
 
 
 def _phase5(rng, gpu, tmp):
@@ -942,6 +986,358 @@ def _phase9(rng, gpu, tmp, main) -> None:
     os.unlink(dirty)
 
 
+# --- phase 10: the public surface -------------------------------------------------
+
+
+#: a child process that runs the port's CLI entry point (``kmix-torch``,
+#: ``krust_tpu_torch.cli:main``) or a streaming API call, as the spec file in
+#: argv[1] lists them, and writes each run's exit code, seconds, kernel
+#: launches and device peak to argv[2]. A CLI run reads the child's stdin
+#: and writes stdout and stderr to files.
+_CHILD = r"""
+import io, json, sys, time
+import numpy as np
+import torch
+from krust_tpu_torch import api, cli
+from krust_tpu_torch.ops.codec import encode_dense
+from krust_tpu_torch.ops.fused_codec import encode_windows
+from krust_tpu_torch.ops.merge import merge_sorted, merge_sorted_keys
+from krust_tpu_torch.ops.rle import rle_compact
+from krust_tpu_torch.utils import tracing
+
+fns = {"encode_windows": encode_windows, "rle_compact": rle_compact,
+       "merge_sorted": merge_sorted, "encode_dense": encode_dense,
+       "merge_sorted_keys": merge_sorted_keys}
+spans = []
+tracing.add_collector(
+    lambda kind, name, f: spans.append(f["elapsed_s"]) if name == "read_sequences" else None)
+results = []
+for run in json.load(open(sys.argv[1])):
+    for fn in fns.values():
+        fn.launches = 0
+    spans.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if run["kind"] == "cli":
+        out, err = open(run["stdout"], "wb"), open(run["stderr"], "wb")
+        saved = sys.stdout, sys.stderr
+        sys.stdout = io.TextIOWrapper(out, write_through=True)
+        sys.stderr = io.TextIOWrapper(err, write_through=True)
+        try:
+            rc = cli.main(run["argv"])
+        except SystemExit as e:
+            rc = e.code
+        finally:
+            seconds = time.perf_counter() - t0
+            sys.stdout.flush()
+            sys.stderr.flush()
+            sys.stdout, sys.stderr = saved
+            out.close()
+            err.close()
+    else:  # the streaming API: the dict it returns, saved as arrays
+        got = api.count_kmers_streaming_packed(run["path"], run["k"])
+        seconds = time.perf_counter() - t0
+        size = len(got)
+        np.save(run["codes"], np.fromiter(got.keys(), np.uint64, count=size))
+        np.save(run["counts"], np.fromiter(got.values(), np.uint64, count=size))
+        rc = 0
+    results.append({"rc": rc, "seconds": seconds, "count_s": sum(spans),
+                    "launches": {n: fn.launches for n, fn in fns.items()},
+                    "peak_device_bytes": torch.cuda.max_memory_allocated()})
+json.dump(results, open(sys.argv[2], "w"))
+"""
+
+
+def _child(tmp, runs, engine, stdin=None) -> tuple[list, dict]:
+    """Run ``runs`` in one child process with KRUST_ENGINE=``engine``;
+    returns each run's result and the child's wall seconds and peak RSS
+    (``os.wait4``)."""
+    spec, res = os.path.join(tmp, "child_spec.json"), os.path.join(tmp, "child_res.json")
+    with open(spec, "w") as f:
+        json.dump(runs, f)
+    env = dict(os.environ, KRUST_ENGINE=engine)
+    t0 = time.perf_counter()
+    with open(stdin or os.devnull, "rb") as child_in:
+        proc = subprocess.Popen([sys.executable, "-c", _CHILD, spec, res], stdin=child_in,
+                                env=env, cwd=os.path.dirname(os.path.abspath(__file__)))
+        _, status, usage = os.wait4(proc.pid, 0)
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 10 child ({engine}) exited {proc.returncode}")
+    with open(res) as f:
+        results = json.load(f)
+    return results, {"seconds": time.perf_counter() - t0,
+                     "peak_rss_bytes": usage.ru_maxrss * 1024}
+
+
+def _cli_runs(tmp, tag, argvs) -> list:
+    return [{"kind": "cli", "argv": argv,
+             "stdout": os.path.join(tmp, f"{tag}_{i}.out"),
+             "stderr": os.path.join(tmp, f"{tag}_{i}.err")} for i, argv in enumerate(argvs)]
+
+
+def _read(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _same_cli_output(dev_runs, nat_runs, dev_res, nat_res, what):
+    """Equal exit codes and bytes, run for run; the native side launched
+    nothing."""
+    for d, n, dr, nr in zip(dev_runs, nat_runs, dev_res, nat_res):
+        if dr["rc"] != nr["rc"] or _read(d["stdout"]) != _read(n["stdout"]):
+            raise AssertionError(f"{what}: {d['argv']}: device CLI != native CLI")
+        if _read(d["stderr"]) != _read(n["stderr"]):
+            raise AssertionError(f"{what}: {d['argv']}: stderr differs")
+        if any(nr["launches"].values()):
+            raise AssertionError(f"{what}: the native CLI launched {nr['launches']}")
+
+
+def _sum_launches(results) -> dict:
+    total: dict = {}
+    for r in results:
+        for name, n in r["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def write_genome(path, rng, total_bases, line=60):
+    """A genome-shaped FASTA: 24 chromosome records (chr1-22, X, Y) in the
+    proportions of the human assembly GRCh38, scaled to ``total_bases``;
+    random bases, about half of them soft-masked (lower case) in runs of
+    300-6000 bases, and runs of N of 10-200 kbases making about 1% of
+    every chromosome; ``line`` bases a line. Returns the record lengths."""
+    grch38_mb = [248, 242, 198, 190, 181, 171, 159, 145, 138, 134, 135, 133, 114, 107,
+                 102, 90, 83, 80, 59, 64, 47, 51, 156, 57]
+    names = [f"chr{i}" for i in range(1, 23)] + ["chrX", "chrY"]
+    scale = total_bases / sum(grch38_mb)
+    lengths = [int(mb * scale) // line * line for mb in grch38_mb]
+    with open(path, "wb") as f:
+        for name, n in zip(names, lengths):
+            seq = _ACGT[rng.integers(0, 4, size=n, dtype=np.uint8)]
+            runs = rng.integers(300, 6001, size=n // 1500 + 2)
+            masked = np.repeat(np.arange(runs.shape[0]) % 2 == 1, runs)[:n]
+            seq |= masked.astype(np.uint8) << 5  # ASCII upper -> lower case
+            n_target, at = n // 100, 0
+            while at < n_target:
+                run = min(int(rng.integers(10_000, 200_001)), n_target + 1)
+                start = int(rng.integers(0, n - run))
+                seq[start : start + run] = ord("N")
+                at += run
+            lines = np.empty((n // line, line + 1), np.uint8)
+            lines[:, :line] = seq.reshape(-1, line)
+            lines[:, line] = ord("\n")
+            f.write(b">" + name.encode() + b"\n")
+            f.write(lines.tobytes())
+    return lengths
+
+
+def _phase10(rng, gpu, tmp, main, main4) -> None:
+    """BASELINE's five configurations and the streaming path: C1-C5 and S."""
+    import gzip
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from krust_tpu_torch import api
+    from krust_tpu_torch.index import KmerIndex, load_index, serialize_index
+    from krust_tpu_torch.kmer import unpack_many
+    from krust_tpu_torch.output import OutputFormat, format_packed_counts
+    from krust_tpu_torch.parallel.mesh import init_distributed
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    fixtures = os.path.join(repo, "tests", "fixtures")
+
+    # C1: the six fixtures x k x the four formats at --min-count 2
+    argvs = []
+    for name in sorted(os.listdir(fixtures)):
+        for k in (1, 5, 21, 32):
+            for fmt in ("fasta", "tsv", "json", "histogram"):
+                argv = [str(k), os.path.join(fixtures, name), "-f", fmt, "-m", "2"]
+                argvs.append(argv + (["-Q", "20"] if name.endswith(".fq") else []))
+    dev_runs, nat_runs = _cli_runs(tmp, "c1d", argvs), _cli_runs(tmp, "c1n", argvs)
+    dev_res, dev_proc = _child(tmp, dev_runs, "device")
+    nat_res, _ = _child(tmp, nat_runs, "native")
+    _same_cli_output(dev_runs, nat_runs, dev_res, nat_res, "C1")
+    launches = _sum_launches(dev_res)
+    if launches["encode_windows"] <= 0 or launches["rle_compact"] <= 0:
+        raise AssertionError(f"C1 skipped a kernel: {launches}")
+    _emit({"phase": 10, "case": "C1", "runs": len(argvs), "k": [1, 5, 21, 32],
+           "formats": ["fasta", "tsv", "json", "histogram"], "min_count": 2,
+           "seconds": sum(r["seconds"] for r in dev_res), "child_s": dev_proc["seconds"],
+           "peak_device_bytes": max(r["peak_device_bytes"] for r in dev_res),
+           "launches": launches, "equal": True, "gpu": gpu})
+
+    # C2: dirty FASTQ at -Q 20, k = 21, TSV to a file: the dense path
+    bases = C2_BASES
+    path = os.path.join(tmp, "c2.fq")
+    write_reads(path, rng, bases, bases // 32, fastq=True, n_rate=0.02, lowq_rate=0.03)
+    argv = ["21", path, "-Q", "20", "-f", "tsv", "-q"]
+    dev_runs, nat_runs = _cli_runs(tmp, "c2d", [argv]), _cli_runs(tmp, "c2n", [argv])
+    dev_res, dev_proc = _child(tmp, dev_runs, "device")
+    nat_res, nat_proc = _child(tmp, nat_runs, "native")
+    _same_cli_output(dev_runs, nat_runs, dev_res, nat_res, "C2")
+    run = dev_res[0]
+    if run["launches"]["encode_dense"] <= 0 or run["launches"]["encode_windows"] != 0:
+        raise AssertionError(f"C2 did not take the dense path: {run['launches']}")
+    _emit({"phase": 10, "case": "C2", "bases": bases, "k": 21, "min_quality": 20,
+           "output_bytes": os.path.getsize(dev_runs[0]["stdout"]), "seconds": run["seconds"],
+           "mbases_per_s": bases / 1e6 / run["seconds"], "child_s": dev_proc["seconds"],
+           "native_child_s": nat_proc["seconds"],
+           "peak_device_bytes": run["peak_device_bytes"], "launches": run["launches"],
+           "equal": True, "gpu": gpu})
+    for r in dev_runs + nat_runs:
+        os.unlink(r["stdout"])
+    os.unlink(path)
+
+    # C3: a genome-shaped FASTA through stdin (the chunked path), k = 31,
+    # histogram; the native side reads the file
+    path = os.path.join(tmp, "genome.fa")
+    t0 = time.perf_counter()
+    lengths = write_genome(path, rng, C3_BASES)
+    gen_s = time.perf_counter() - t0
+    dev_runs = _cli_runs(tmp, "c3d", [["31", "-f", "histogram", "-q"]])
+    dev_res, dev_proc = _child(tmp, dev_runs, "device", stdin=path)
+    nat_runs = _cli_runs(tmp, "c3n", [["31", path, "-f", "histogram", "-q"]])
+    nat_res, nat_proc = _child(tmp, nat_runs, "native")
+    _same_cli_output(dev_runs, nat_runs, dev_res, nat_res, "C3")
+    run = dev_res[0]
+    if run["launches"]["encode_windows"] <= 0 or run["launches"]["rle_compact"] <= 0:
+        raise AssertionError(f"C3 skipped a kernel: {run['launches']}")
+    hist = _read(dev_runs[0]["stdout"]).split()
+    distinct = sum(int(f) for f in hist[1::2])
+    _emit({"phase": 10, "case": "C3", "bases": sum(lengths), "records": len(lengths),
+           "file_bytes": os.path.getsize(path), "k": 31, "stdin": True,
+           "chunk_bytes": api.DEFAULT_STDIN_CHUNK_BYTES, "distinct": distinct,
+           "data_gen_s": gen_s, "seconds": run["seconds"], "count_s": run["count_s"],
+           "mbases_per_s": sum(lengths) / 1e6 / run["seconds"],
+           "child_s": dev_proc["seconds"], "peak_rss_bytes": dev_proc["peak_rss_bytes"],
+           "peak_device_bytes": run["peak_device_bytes"], "launches": run["launches"],
+           "native_child_s": nat_proc["seconds"],
+           "native_peak_rss_bytes": nat_proc["peak_rss_bytes"], "equal": True, "gpu": gpu})
+    os.unlink(path)
+
+    # C4: phase 3's reads, --save .kmix, then query by the CLI and by
+    # load_index(...).get
+    path, exp = _main_file(rng, tmp, main)
+    kmix = os.path.join(tmp, "reads.kmix")
+    dev_runs = _cli_runs(tmp, "c4d", [["21", path, "--save", kmix, "-f", "histogram"]])
+    dev_res, dev_proc = _child(tmp, dev_runs, "device")
+    run = dev_res[0]
+    want = format_packed_counts(exp.codes, exp.counts, 21, OutputFormat.HISTOGRAM, 1)
+    if run["rc"] != 0 or _read(dev_runs[0]["stdout"]) != want:
+        raise AssertionError("C4: device CLI histogram != native core")
+    if run["launches"]["encode_windows"] <= 0 or run["launches"]["rle_compact"] <= 0:
+        raise AssertionError(f"C4 skipped a kernel: {run['launches']}")
+    if _read(kmix) != serialize_index(KmerIndex.from_arrays(21, exp.codes, exp.counts)):
+        raise AssertionError("C4: .kmix from the device table != from the native core's")
+    pick = rng.choice(exp.distinct, 10, replace=False)
+    comp = str.maketrans("ACGT", "TGCA")
+    queries = []
+    for i, kmer in enumerate(unpack_many(exp.codes[pick], 21)):
+        queries.append(kmer.lower() if i % 2 else kmer.translate(comp)[::-1])
+    query_runs = _cli_runs(tmp, "c4q", [["query", kmix, q] for q in queries])
+    query_res, query_proc = _child(tmp, query_runs, "device")
+    for r, res, c in zip(query_runs, query_res, exp.counts[pick]):
+        if res["rc"] != 0 or int(_read(r["stdout"])) != int(c):
+            raise AssertionError(f"C4: query {r['argv']} != {c}")
+    t0 = time.perf_counter()
+    index = load_index(kmix)
+    load_s = time.perf_counter() - t0
+    probes = np.concatenate([exp.codes[rng.integers(0, exp.distinct, 90_000)],
+                             rng.integers(0, 1 << 42, 10_000, dtype=np.uint64)])
+    t0 = time.perf_counter()
+    got = [index.get(int(c)) or 0 for c in probes]
+    get_s = time.perf_counter() - t0
+    if got != [exp.get(int(c)) for c in probes]:
+        raise AssertionError("C4: load_index(...).get != native core")
+    _emit({"phase": 10, "case": "C4", "bases": MAIN_BASES, "k": 21,
+           "entries": len(index), "kmix_bytes": os.path.getsize(kmix),
+           "seconds": run["seconds"], "mbases_per_s": MAIN_BASES / 1e6 / run["seconds"],
+           "child_s": dev_proc["seconds"], "peak_device_bytes": run["peak_device_bytes"],
+           "launches": run["launches"], "cli_queries": len(queries),
+           "query_child_s": query_proc["seconds"], "get_queries": int(probes.shape[0]),
+           "load_index_s": load_s, "get_s": get_s, "equal": True, "gpu": gpu})
+    del index
+    os.unlink(kmix)
+
+    # C5: gzip FASTQ through the streaming API, then sharded in a
+    # one-rank NCCL group
+    bases = C5_BASES
+    plain, gz = os.path.join(tmp, "c5.fq"), os.path.join(tmp, "c5.fq.gz")
+    write_reads(plain, rng, bases, GENOME, fastq=True)
+    with open(plain, "rb") as f_in, gzip.open(gz, "wb", compresslevel=1) as f_out:
+        shutil.copyfileobj(f_in, f_out, 64 << 20)
+    os.unlink(plain)
+    exp5 = _native_counts(gz, 21)
+    rows = []
+    for entry in ("streaming_packed", "sharded_nccl"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        if entry == "streaming_packed":
+            got = api.count_kmers_streaming_packed(gz, 21)
+            sec = time.perf_counter() - t0
+            n = len(got)
+            equal = (np.array_equal(np.fromiter(got.keys(), np.uint64, count=n), exp5.codes)
+                     and np.array_equal(np.fromiter(got.values(), np.uint64, count=n),
+                                        exp5.counts))
+        else:
+            init_distributed(f"file://{os.path.join(tmp, 'pg10')}", rank=0, world_size=1)
+            try:
+                t0 = time.perf_counter()
+                got = api.count_kmers_sharded_result(gz, 21)
+                sec = time.perf_counter() - t0
+            finally:
+                dist.destroy_process_group()
+            equal = (np.array_equal(got.codes, exp5.codes)
+                     and np.array_equal(got.counts, exp5.counts))
+        launches = _launches()
+        if not equal:
+            raise AssertionError(f"C5 {entry}: port != native core")
+        if launches["encode_windows"] <= 0 or launches["rle_compact"] <= 0:
+            raise AssertionError(f"C5 {entry} skipped a kernel: {launches}")
+        rows.append({"entry": entry, "seconds": sec, "mbases_per_s": bases / 1e6 / sec,
+                     "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                     "launches": launches})
+        del got
+    _emit({"phase": 10, "case": "C5", "bases": bases, "gzip_bytes": os.path.getsize(gz),
+           "k": 21, "distinct": exp5.distinct, "runs": rows, "equal": True, "gpu": gpu})
+    os.unlink(gz)
+
+    # S: phase 4's 1.25-epoch file through count_kmers_streaming_packed in
+    # 256 MiB chunks, in a child (its own peak RSS)
+    path, exp = main4 if main4 is not None else _main4_file(rng, tmp)
+    runs = [{"kind": "streaming_packed", "path": path, "k": 21,
+             "codes": os.path.join(tmp, "s_codes.npy"),
+             "counts": os.path.join(tmp, "s_counts.npy")}]
+    res, proc = _child(tmp, runs, "device")
+    run = res[0]
+    codes, counts = np.load(runs[0]["codes"]), np.load(runs[0]["counts"])
+    if not (np.array_equal(codes, exp.codes) and np.array_equal(counts, exp.counts)):
+        raise AssertionError("S: count_kmers_streaming_packed != native core")
+    missing = [n for n in ("encode_windows", "rle_compact", "merge_sorted")
+               if run["launches"][n] <= 0]
+    if missing:
+        raise AssertionError(f"S never launched {missing}: {run['launches']}")
+    file_bytes = os.path.getsize(path)
+    bases = file_bytes // (READ_LEN + 4) * READ_LEN
+    _emit({"phase": 10, "case": "S", "bases": bases, "file_bytes": file_bytes, "k": 21,
+           "chunk_bytes": api.DEFAULT_STREAMING_CHUNK_BYTES,
+           "chunks": -(-file_bytes // api.DEFAULT_STREAMING_CHUNK_BYTES),
+           "distinct": int(codes.shape[0]), "seconds": run["seconds"],
+           "count_s": run["count_s"], "mbases_per_s": bases / 1e6 / run["seconds"],
+           "child_s": proc["seconds"],
+           "peak_rss_bytes": proc["peak_rss_bytes"],
+           "peak_device_bytes": run["peak_device_bytes"], "launches": run["launches"],
+           "equal": True, "gpu": gpu})
+    for r in runs:
+        os.unlink(r["codes"])
+        os.unlink(r["counts"])
+
+
 #: per kernel wrapper: its source, the TPU kernel it replaces, the phase
 #: whose counting run (or, for K5, timing) gives its launches, and the
 #: design it was rebuilt to for the card
@@ -1003,11 +1399,11 @@ def main() -> int:
 
     launches = {2: {"merge_sorted_keys": results.get("merge_sorted_keys", {}).get("launches")}}
     with tempfile.TemporaryDirectory() as tmp:
-        main = None
+        main = main4 = None
         if 3 in phases:
-            main = _phase3(rng, gpu, tmp, keep=bool({8, 9} & phases))
+            main = _phase3(rng, gpu, tmp, keep=bool({8, 9, 10} & phases))
         if 4 in phases:
-            launches[4] = _phase4(rng, gpu, tmp)
+            launches[4], main4 = _phase4(rng, gpu, tmp, keep=10 in phases)
         if 5 in phases:
             _phase5(rng, gpu, tmp)
         if 6 in phases:
@@ -1018,6 +1414,8 @@ def main() -> int:
             main = _phase8(rng, gpu, tmp, main)
         if 9 in phases:
             _phase9(rng, gpu, tmp, main)
+        if 10 in phases:
+            _phase10(rng, gpu, tmp, main, main4)
 
     kernels = []
     for name, (source, replaces, phase, redesigned) in _REPLACES.items():

@@ -528,3 +528,103 @@ def test_sharded_exchange_in_a_one_rank_nccl_group(dev, tmp_path, k):
     np.testing.assert_array_equal(got.codes, exp.codes)
     np.testing.assert_array_equal(got.counts, exp.counts)
     assert [x["wire_bytes"] for x in spans] == [got.distinct * (8 if k <= 16 else 12)]
+
+
+# --- the public surface on the card: chunked ingest, stdin CLI, .kmix ----------
+
+
+def _write_reads_fq(path, seed, n_rate):
+    """Seeded FASTQ: 60 reads of 20-400 bases, ``n_rate`` of them N, 3%
+    below Q20, 5% soft-masked."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    lines = []
+    for i in range(60):
+        n = int(rng.integers(20, 400))
+        s = acgt[rng.integers(0, 4, n)].copy()
+        s[rng.random(n) < n_rate] = ord("N")
+        s[rng.random(n) < 0.05] += 32
+        q = np.where(rng.random(n) < 0.03, ord("#"), ord("I")).astype(np.uint8)
+        lines += [f"@r{i}", s.tobytes().decode(), "+", q.tobytes().decode()]
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def _native_file(path, k, min_quality=None):
+    from krust_tpu_torch.io.format import SequenceFormat
+    from krust_tpu_torch.io.reader import parse_to_streams, read_input_bytes
+
+    streams = parse_to_streams(read_input_bytes(path), SequenceFormat.AUTO.resolve(path))
+    return NativeEngine().count(streams, k, min_quality)
+
+
+@pytest.mark.parametrize("k", [1, 16, 17, 32])
+@pytest.mark.parametrize("lsm", [False, True], ids=["epoch", "lsm"])
+@pytest.mark.parametrize("route", ["flat", "dense"])
+@pytest.mark.parametrize("chunk", [64, 700, 1 << 20])
+def test_chunked_count_on_cuda_matches_native(dev, tmp_path, monkeypatch, chunk, route,
+                                              lsm, k):
+    """The bounded-memory ingest path (``ingest_chunk_bytes``) on the card,
+    small batches and epochs: the route's codec kernel and K2 launched,
+    the table equal to the native core's. Routing is per chunk, so a chunk
+    of a few reads may take the other route too (and a FASTQ that ends on
+    a record boundary leaves an empty last chunk, fed as one flat batch)."""
+    from krust_tpu_torch.api import _count_path
+
+    monkeypatch.setenv("KRUST_EPOCH_ENTRIES", "3000")
+    monkeypatch.setenv("KRUST_PENDING_ENTRIES", "5000")
+    path = _write_reads_fq(tmp_path / "r.fq", k, 0.002 if route == "flat" else 0.08)
+    codec = encode_windows if route == "flat" else encode_dense
+    before = {f: f.launches for f in (codec, rle_compact)}
+    cfg = EngineConfig(block_windows=256, batch_rows=8, device=dev, ingest_chunk_bytes=chunk,
+                       use_epoch_sort=not lsm)
+    got = _count_path(path, k, min_quality=20 if route == "dense" else None, config=cfg)
+    exp = _native_file(path, k, 20 if route == "dense" else None)
+    np.testing.assert_array_equal(got.codes, exp.codes)
+    np.testing.assert_array_equal(got.counts, exp.counts)
+    assert codec.launches > before[codec]
+    assert rle_compact.launches > before[rle_compact]
+
+
+@pytest.mark.parametrize("fmt", ["fasta", "fastq"])
+def test_stdin_cli_on_cuda_matches_native(dev, tmp_path, fmt):
+    """``python -m krust_tpu_torch 21 -`` on the device engine, reading
+    stdin in chunks, prints the native engine's bytes."""
+    import os
+    import subprocess
+    import sys
+
+    path = _write_reads_fq(tmp_path / "r.fq", 7, 0.01)
+    if fmt == "fasta":
+        recs = open(path).read().splitlines()
+        (tmp_path / "r.fa").write_text(
+            "".join(f">{h[1:]}\n{s}\n" for h, s in zip(recs[0::4], recs[1::4])))
+        path = str(tmp_path / "r.fa")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    outs = []
+    for engine in ("device", "native"):
+        with open(path, "rb") as stdin:
+            outs.append(subprocess.run(
+                [sys.executable, "-m", "krust_tpu_torch", "21", "-", "-i", fmt, "-f", "tsv",
+                 "-q"], stdin=stdin, capture_output=True, check=True, timeout=300, cwd=repo,
+                env=dict(os.environ, KRUST_ENGINE=engine)).stdout)
+    assert outs[0] and outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("k", [5, 21, 32])
+def test_kmix_from_device_table_matches_native(dev, tmp_path, k):
+    """A ``.kmix`` saved from a table counted on the card has the bytes of
+    one saved from the native core's table."""
+    from krust_tpu_torch.api import count_with_input
+    from krust_tpu_torch.index import KmerIndex, load_index, save_index
+    from krust_tpu_torch.io.input import Input
+
+    path = _write_reads_fq(tmp_path / "r.fq", k, 0.01)
+    got = count_with_input(Input.from_path(path), k, config=EngineConfig(
+        block_windows=256, batch_rows=8, device=dev))
+    exp = _native_file(path, k)
+    for name, table in (("dev.kmix", got), ("nat.kmix", exp)):
+        save_index(KmerIndex.from_arrays(k, table.codes, table.counts), tmp_path / name)
+    assert (tmp_path / "dev.kmix").read_bytes() == (tmp_path / "nat.kmix").read_bytes()
+    index = load_index(tmp_path / "dev.kmix")
+    assert [index.get(int(c)) for c in exp.codes] == exp.counts.tolist()
