@@ -7,8 +7,9 @@ Needs a CUDA device and ``nvcc`` (the kernels build from
 Phases, printing JSON lines:
 
 1. environment: GPU name and power limit, torch / CUDA / nvcc versions,
-   kernel build time, and each kernel's registers, shared memory and
-   spills as ptxas reported them;
+   kernel build time, the host's MemTotal and the card's total memory, and
+   each kernel's registers, shared memory and spills as ptxas reported
+   them;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    main path's shapes, exactly equal (integer work: tolerance 0), with
    kernel and plain times, the least time the card could take for the same
@@ -22,17 +23,25 @@ Phases, printing JSON lines:
    shaped like phase 4's merge (2^26 entries each, about 46M distinct keys
    that both parts share, sentinel tails), in both key widths; the kernel
    line takes the int64 shared row. K5 lies on no counting path: its
-   launches in the kernel line are those of its timing here;
+   launches in the kernel line are those of its timing here. K2 and K3
+   also run on 2^31 - 2^20 + 7 int64 entries (a table lifetime's last
+   merge), checked against their closed form. Then the table's memory:
+   peak device bytes of an epoch flush (2^26, 2^28, 2^30 raw keys, int64
+   and int32), a part merge (2 x 2^24, 2^26, 2^28 entries) and
+   ``merge_runs`` (2, 8 and 24 batches), each fit to fixed + per entry x
+   n; the entry limits derived from the fits beside ``ops/table.py``'s
+   constants, whose worst cases must fit the budget;
 3. bench.py's workload: 512 Mbases of 250 bp reads at 32x over a 16 Mbase
    genome (made with numpy from --seed), written as FASTA and counted at
-   k = 21 through ``api.count_with_input`` with KRUST_ENGINE=device, twice,
+   k = 21 through ``api.count_with_input`` with KRUST_ENGINE=device, once,
    timed; the full table must equal the native C++ core's. It fits one
    epoch of the default size, so it launches no merge;
 4. the clean main path at the default, memory-scaled epoch size: 1.25
-   epochs of reads at 32x (about 1.5 Gbases on an 80 GB card), k = 21, so
+   epochs of reads at 32x (about 1.57 Gbases on an 80 GB card), k = 21, so
    the table sorts two epochs and merges their parts. The launch counters
    are set to 0 just before this count and read just after it; K1-K3 must
-   have launched. Peak device memory is recorded. Equal to the native core;
+   have launched. Peak device memory is recorded and must stay within the
+   table's budget. Equal to the native core;
 5. multi-epoch: 64 Mbases with KRUST_EPOCH_ENTRIES = 2^22 at k = 16 and 31
    (both key widths of the merge kernel), equal to the native core;
 6. edge k and masks on the flat path: FASTQ with Ns, soft-masking and
@@ -40,8 +49,8 @@ Phases, printing JSON lines:
    core; plus one CLI run (``python -m krust_tpu_torch``) against it;
 7. the dense path at full size: 512 Mbases of 250 bp FASTQ reads at 32x
    over a 16 Mbase genome with about 5% of bases N or below Q20 (above the
-   1/32 line), counted at -Q 20, k = 21, twice, timed, with the counters
-   set to 0 just before each count (K4 and K2 must launch, K1 must not),
+   1/32 line), counted at -Q 20, k = 21, once, timed, with the counters
+   set to 0 just before the count (K4 and K2 must launch, K1 must not),
    equal to the native core; the host time of ``pack_buffer_2bit``; the
    same parsed stream timed on both device routes (dense, and flat with
    the invalid positions scanned without the 1/32 limit); a dirty ~8 Mbase
@@ -53,10 +62,9 @@ Phases, printing JSON lines:
    (int32 keys) and a dirty 8 Mbase FASTQ at -Q 20 (K4 into the
    ``DeviceTable``). Every table equal to the native core's;
 9. the sharded path (``api.count_kmers_sharded_result``) in a world of one
-   on phase 3's file at k = 21: twice with no process group (the exchange
-   runs no collective), timed, with peak device memory, between two plain
-   counts of the same file (``api.count_with_input``; the order plain,
-   sharded, sharded, plain), then twice inside a
+   on phase 3's file at k = 21: once with no process group (the exchange
+   runs no collective), timed, with peak device memory, after a plain
+   count of the same file (``api.count_with_input``), then once inside a
    one-rank NCCL group (``file://`` init in the temporary directory,
    destroyed after), where the owner order, the split sizes and both
    ``all_to_all_single`` payloads run on the card; its ``wire_bytes`` and
@@ -74,9 +82,12 @@ Phases, printing JSON lines:
    ``tests/fixtures`` files x k in {1, 5, 21, 32} x the four formats at
    ``--min-count 2`` (-Q 20 for FASTQ), 96 runs a child. C2: 64 Mbases of
    phase 7's dirty FASTQ recipe at 32x, k = 21, ``-Q 20 -f tsv`` (K4 must
-   launch). C3: a genome-shaped FASTA of C3_BASES (24 chromosomes in
-   GRCh38's proportions, half soft-masked, 1% N runs) at k = 31 through
-   stdin (the chunked path, 256 MiB chunks), ``-f histogram``. C4: phase
+   launch). C3: a genome-shaped FASTA of C3_BASES, GRCh38's 3.1 Gbases
+   (24 chromosomes in its proportions, half soft-masked, 1% N runs), cut
+   to what the host's MemTotal holds but never below 2.3 Gbases, at k = 31
+   through stdin (the chunked path, 256 MiB chunks), ``-f histogram``: at
+   least two table lifetimes (2^31 windows each), a part merge (K3) in
+   each full one, the device peak within the table's budget. C4: phase
    3's file, ``--save`` a ``.kmix`` (equal to the bytes of the index of the
    native core's table), 10 ``query`` runs and 100k ``load_index(...).get``.
    C5: phase 3's recipe as a 128 Mbase gzip FASTQ through
@@ -107,11 +118,20 @@ READ_LEN = 250
 GENOME = 16_000_000
 MAIN_BASES = 512_000_000
 ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
-#: phase 10's inputs: C2's dirty FASTQ, C3's genome-shaped FASTA (it stands
-#: in for a 3.1 Gbase assembly; cut for the phase's time), C5's gzip FASTQ
+#: phase 10's inputs: C2's dirty FASTQ, C3's genome-shaped FASTA (GRCh38's
+#: 3.1 Gbases), C5's gzip FASTQ
 C2_BASES = 64_000_000
-C3_BASES = 1_000_000_000
+C3_BASES = 3_100_000_000
 C5_BASES = 128_000_000
+#: C3 is cut to the largest genome whose CLI children (the port's and the
+#: native core's, one at a time) the host's MemTotal holds with 20% to
+#: spare, at C3_HOST_BYTES_PER_BASE host bytes a base: the native core's
+#: CLI child, the larger of the two, peaked at 37.6 GB on a 1 Gbase genome
+#: (the H100 host). It is never cut below C3_MIN_BASES, which still crosses
+#: a table lifetime (EPOCH_WINDOW_LIMIT = 2^31 windows)
+C3_MIN_BASES = 2_300_000_000
+C3_HOST_BYTES_PER_BASE = 37.6
+C3_HOST_SPARE = 1.2
 
 #: the card's peaks the bound is taken against (NVIDIA H100 SXM data sheet):
 #: HBM bytes/s, and the float32 rate outside the tensor cores as the rate
@@ -179,6 +199,23 @@ def _max_abs_err(pairs) -> int:
         d = (got.to(exp.dtype) - exp).abs().max().item() if got.numel() else 0
         err = max(err, int(d))
     return err
+
+
+def _mem_total() -> int:
+    """The host's MemTotal (``/proc/meminfo``), in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError("no MemTotal in /proc/meminfo")
+
+
+def _fit(points) -> tuple[float, float]:
+    """Least-squares (fixed, per_entry) of bytes = fixed + per_entry * n
+    over (n, bytes) points."""
+    per_entry, fixed = np.polyfit([float(n) for n, _ in points],
+                                  [float(b) for _, b in points], 1)
+    return float(fixed), float(per_entry)
 
 
 # --- phase 2: kernels against their plain versions ------------------------------
@@ -292,18 +329,17 @@ def _check_rle(g, gpu, dev, results):
     results["rle_compact"] = timed
 
 
-def _shared_parts(g, dtype, dev):
-    """Two compacted parts shaped like phase 4's merge: 2^26 entries each
-    (round_pow2 of about 46M distinct keys), part a the whole sorted pool,
-    part b about 99.7% of it (two epochs over one genome), counts 1-500,
-    sentinel tails with count 0."""
+def _shared_parts(g, dtype, dev, m=1 << 26):
+    """Two compacted parts shaped like phase 4's merge: m = 2^26 entries
+    each (round_pow2 of about 46M distinct keys; other m keep the share),
+    part a the whole sorted pool, part b about 99.7% of it (two epochs over
+    one genome), counts 1-500, sentinel tails with count 0."""
     import torch
 
-    m = 1 << 26
     lo = torch.iinfo(dtype).min
     span = 2**32 - 1 if dtype == torch.int32 else 2**42
-    pool = torch.unique(torch.randint(lo, lo + span, (46_000_000,), generator=g, device=dev,
-                                      dtype=dtype))
+    pool = torch.unique(torch.randint(lo, lo + span, (46_000_000 * m >> 26,), generator=g,
+                                      device=dev, dtype=dtype))
     keep = torch.rand(pool.numel(), generator=g, device=dev) < 0.997
     parts = []
     for keys in (pool, pool[keep]):
@@ -453,48 +489,214 @@ def _check_merge_keys(rng, gpu, dev, results):
     results["merge_sorted_keys"] = row
 
 
-def _check_merge_runs(g, gpu, dev):
-    """The LSM table's compaction at its full size: 8 batches of 33.5M raw
-    int64 window keys (unit weights, 1% sentinels, drawn from 46M distinct
-    keys) plus a compacted 2^26-entry table (46M keys with counts, sentinel
-    tail), through ``merge_runs`` on the card and on the CPU (K2's plain
-    version underneath), equal. No kernel of its own: ``torch.sort`` with
-    the weights gathered after, then K2 in weighted mode."""
+def _check_merge_runs(g, gpu, dev) -> list:
+    """The LSM table's compaction: ``batches`` batches of 33.5M raw int64
+    window keys (unit weights, 1% sentinels, drawn from 46M distinct keys)
+    plus a compacted 2^26-entry table (46M keys with counts, sentinel
+    tail), through ``merge_runs``. At its full size (8 batches) also on the
+    CPU (K2's plain version underneath), equal; at 2 and 24 batches for
+    the memory fit only. No kernel of its own: ``torch.sort`` with the
+    weights gathered after, then K2 in weighted mode. Returns the (entries,
+    peak bytes with the inputs) points."""
     import torch
 
     from krust_tpu_torch.ops.count import merge_runs
     from krust_tpu_torch.ops.rle import rle_compact
 
-    n_raw, m = 8 * 8192 * 4096, 1 << 26
-    t_keys, t_cnt = _shared_parts(g, torch.int64, dev)[:2]
-    n_pool = int((t_cnt > 0).sum().item())
-    raw = t_keys[torch.randint(0, n_pool, (n_raw,), generator=g, device=dev)]
-    raw[torch.rand(n_raw, generator=g, device=dev) < 0.01] = torch.iinfo(torch.int64).max
-    keys = torch.cat([raw, t_keys])
-    cnt = torch.cat([torch.ones(n_raw, dtype=torch.int32, device=dev), t_cnt])
-    del raw, t_keys, t_cnt
+    points = []
+    for batches in (2, 8, 24):
+        n_raw, m = batches * 8192 * 4096, 1 << 26
+        t_keys, t_cnt = _shared_parts(g, torch.int64, dev)[:2]
+        n_pool = int((t_cnt > 0).sum().item())
+        raw = t_keys[torch.randint(0, n_pool, (n_raw,), generator=g, device=dev)]
+        raw[torch.rand(n_raw, generator=g, device=dev) < 0.01] = torch.iinfo(torch.int64).max
+        keys = torch.cat([raw, t_keys])
+        cnt = torch.cat([torch.ones(n_raw, dtype=torch.int32, device=dev), t_cnt])
+        del raw, t_keys, t_cnt
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        input_bytes = keys.numel() * 12
+        before = rle_compact.launches
+        got = merge_runs(keys, cnt)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        points.append((n_raw + m, peak + input_bytes))
+        if rle_compact.launches != before + 1:
+            raise AssertionError("merge_runs on the card did not launch K2")
+        row = {"phase": 2, "function": "merge_runs", "keys": "torch.int64",
+               "entries": n_raw + m, "raw": n_raw, "table": m, "n_unique": int(got[2].item()),
+               "peak_bytes_above_inputs": peak, "input_bytes": input_bytes}
+        if batches == 8:
+            exp = merge_runs(keys.cpu(), cnt.cpu())
+            for a, b in zip(got, exp):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError("merge_runs: card != CPU")
+            del exp
+            row["equal_to_cpu"] = True
+        del got
+        row["merge_runs_ms"] = _time_ms(lambda: merge_runs(keys, cnt), 3)
+        row["torch_sort_ms"] = _time_ms(lambda: torch.sort(keys), 3)
+        _emit({**row, "gpu": gpu})
+        del keys, cnt
+    return points
+
+
+def _memory_fits(g, gpu, dev, merge_runs_points) -> dict:
+    """Peak device bytes of the table's steps, each with its inputs: an
+    epoch flush (``_epoch_concat_sort_rle``) of 2^26, 2^28 and 2^30 raw
+    keys in parts of one default batch (2^25 keys) as the main path
+    appends them, int64 (k = 21) and int32 (k = 15); a part merge
+    (``_merge_compact``, given its parts' last references as the table
+    gives them) of two phase-4-shaped parts of 2^24, 2^26 and 2^28 entries;
+    ``merge_runs`` from its check. Each is fit to bytes = fixed +
+    per_entry * n and printed; returns the fits."""
+    import torch
+
+    from krust_tpu_torch.ops import table as table_mod
+
+    def measure(make, run):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        inputs = make()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(inputs)
+        end.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        return peak, start.elapsed_time(end)
+
+    fits = {}
+    rows = []
+    for dtype, k, bits in ((torch.int64, 21, 42), (torch.int32, 15, 30)):
+        lo = torch.iinfo(dtype).min
+        points = []
+        for n in (1 << 26, 1 << 28, 1 << 30):
+            def make(n=n):
+                return [torch.randint(lo, lo + 2**bits, (1 << 25,), generator=g, device=dev,
+                                      dtype=dtype) for _ in range(n >> 25)]
+            peak, ms = measure(make, table_mod._epoch_concat_sort_rle)
+            points.append((n, peak))
+            rows.append({"function": "_epoch_concat_sort_rle", "keys": str(dtype), "k": k,
+                         "raw_keys": n, "peak_bytes": peak, "ms": ms})
+        fits["epoch_flush", str(dtype)] = points
+    points = []
+    for m in (1 << 24, 1 << 26, 1 << 28):
+        def make(m=m):
+            parts = _shared_parts(g, torch.int64, dev, m)
+            return [(parts[0], parts[1]), (parts[2], parts[3])]
+        peak, ms = measure(make, lambda pair: table_mod._merge_compact(pair.pop(0), pair.pop(0)))
+        points.append((2 * m, peak))
+        rows.append({"function": "_merge_compact", "keys": "torch.int64", "entries": 2 * m,
+                     "peak_bytes": peak, "ms": ms})
+    fits["part_merge", "torch.int64"] = points
+    fits["merge_runs", "torch.int64"] = merge_runs_points
+    for r in rows:
+        _emit({"phase": 2, "memory": True, **r, "gpu": gpu})
+    out = {}
+    for (name, keys), points in fits.items():
+        fixed, per_entry = _fit(points)
+        out[name, keys] = (fixed, per_entry)
+        _emit({"phase": 2, "memory_fit": name, "keys": keys, "points": points,
+               "fixed_bytes": fixed, "bytes_per_entry": per_entry, "gpu": gpu})
+    return out
+
+
+def _derive_limits(gpu, dev, fits) -> None:
+    """The table's entry limits derived from this run's fits, beside the
+    constants of ``ops/table.py`` scaled to this card; raises if a
+    constant's worst case under this run's fits leaves the budget."""
+    import torch
+
+    from krust_tpu_torch.ops import table as table_mod
+
+    total = torch.cuda.mem_get_info(dev)[1]
+    budget = table_mod.memory_budget(total)
+    f64, f32 = fits["epoch_flush", "torch.int64"], fits["epoch_flush", "torch.int32"]
+    merge, runs = fits["part_merge", "torch.int64"], fits["merge_runs", "torch.int64"]
+    epoch = table_mod.epoch_entry_limit(dev)
+    pending = table_mod.DeviceTable(21, dev)._pending_limit
+    row = {
+        "device_total_bytes": total, "reserve": table_mod.MEM_RESERVE, "budget_bytes": budget,
+        "epoch_entry_limit": epoch,
+        "epoch_entry_limit_derived": table_mod.fitting_entries(
+            f64[0], table_mod.PART_BYTES_PER_ENTRY + f64[1], total),
+        "epoch_peak_bytes": table_mod.epoch_peak_bytes(epoch, *f64),
+        # int32 keys (k <= 16): a part is 8 B an entry; a figure, not a limit
+        "epoch_entry_limit_int32_derived": table_mod.fitting_entries(f32[0], 8 + f32[1], total),
+        "pending_entry_limit": pending,
+        "pending_entry_limit_derived": table_mod.fitting_entries(*runs, total),
+        "pending_peak_bytes": runs[0] + runs[1] * pending,
+        "lifetime_merge_entries": table_mod.EPOCH_WINDOW_LIMIT,
+        "lifetime_merge_bytes": merge[0] + merge[1] * table_mod.EPOCH_WINDOW_LIMIT,
+        "lifetime_merge_bytes_model": table_mod.LIFETIME_MERGE_BYTES,
+    }
+    _emit({"phase": 2, "limits": row, "gpu": gpu})
+    for name in ("epoch_peak_bytes", "pending_peak_bytes", "lifetime_merge_bytes"):
+        if row[name] > budget:
+            raise AssertionError(f"{name} {row[name]:.0f} > budget {budget:.0f}: {row}")
+
+
+def _check_large_index(gpu, dev) -> None:
+    """K2 and K3 on 2^31 - 2^20 + 7 int64 entries, the size of a table
+    lifetime's last merge, where every tile base, tile end and rank past
+    2^31 must be 64-bit: outputs checked against their closed form on the
+    card in slices (keys = bias + i // 3 with unit weights; the merge of
+    the even and the odd keys)."""
+    import torch
+
+    from krust_tpu_torch.ops.merge import merge_sorted
+    from krust_tpu_torch.ops.rle import rle_compact
+
+    n = (1 << 31) - (1 << 20) + 7
+    lo = torch.iinfo(torch.int64).min
+    step = 1 << 28
+
+    def check_slices(got, want, what):
+        for i in range(0, got.numel(), step):
+            j = min(i + step, got.numel())
+            if not torch.equal(got[i:j], want(i, j)):
+                raise AssertionError(f"{what}: entries {i}..{j} differ from the closed form")
+
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    before = rle_compact.launches
-    got = merge_runs(keys, cnt)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    if rle_compact.launches != before + 1:
-        raise AssertionError("merge_runs on the card did not launch K2")
-    exp = merge_runs(keys.cpu(), cnt.cpu())
-    for a, b in zip(got, exp):
-        if not torch.equal(a.cpu(), b):
-            raise AssertionError("merge_runs: card != CPU")
-    n_unique = int(got[2].item())
-    del got, exp
-    ms = _time_ms(lambda: merge_runs(keys, cnt), 3)
-    sort_ms = _time_ms(lambda: torch.sort(keys), 3)
-    _emit({"phase": 2, "function": "merge_runs", "keys": "torch.int64",
-           "entries": n_raw + m, "raw": n_raw, "table": m, "n_unique": n_unique,
-           "equal_to_cpu": True, "merge_runs_ms": ms, "torch_sort_ms": sort_ms,
-           "peak_bytes_above_inputs": peak,
-           "input_bytes": keys.numel() * 12, "gpu": gpu})
+    live = n - 1000  # a sentinel tail
+    keys = torch.arange(n, dtype=torch.int64, device=dev).div_(3, rounding_mode="floor").add_(lo)
+    keys[live:] = torch.iinfo(torch.int64).max
+    o_keys, o_cnt, n_dev = rle_compact(keys, torch.ones(n, dtype=torch.int32, device=dev))
+    del keys
+    nu = int(n_dev.item())
+    if nu != -(-live // 3):
+        raise AssertionError(f"K2 at n={n}: n_unique {nu} != {-(-live // 3)}")
+    ar = lambda i, j: torch.arange(i, j, dtype=torch.int64, device=dev)  # noqa: E731
+    check_slices(o_keys[:nu], lambda i, j: ar(i, j).add_(lo), "K2 keys")
+    check_slices(o_cnt[: nu - 1], lambda i, j: torch.full((j - i,), 3, dtype=torch.int32,
+                                                         device=dev), "K2 counts")
+    if int(o_cnt[nu - 1]) != live - 3 * (nu - 1) or not bool((o_cnt[nu:] == 0).all()):
+        raise AssertionError(f"K2 at n={n}: last count or zero tail wrong")
+    if not bool((o_keys[nu:] == torch.iinfo(torch.int64).max).all()):
+        raise AssertionError(f"K2 at n={n}: sentinel tail wrong")
+    del o_keys, o_cnt
+    _emit({"phase": 2, "kernel": "rle_compact", "keys": "torch.int64", "n": n,
+           "weighted": True, "n_unique": nu, "check": "closed form", "equal": True, "gpu": gpu})
+
+    torch.cuda.empty_cache()
+    ma, mb = (n + 1) // 2, n // 2
+    a = torch.arange(ma, dtype=torch.int64, device=dev).mul_(2).add_(lo)
+    b = torch.arange(mb, dtype=torch.int64, device=dev).mul_(2).add_(lo + 1)
+    ac = torch.ones(ma, dtype=torch.int32, device=dev)
+    bc = torch.full((mb,), 2, dtype=torch.int32, device=dev)
+    out_keys, out_cnt = merge_sorted(a, ac, b, bc)
+    del a, b, ac, bc
+    check_slices(out_keys, lambda i, j: ar(i, j).add_(lo), "K3 keys")
+    check_slices(out_cnt, lambda i, j: ar(i, j).remainder_(2).add_(1).to(torch.int32),
+                 "K3 counts")
+    del out_keys, out_cnt
+    _emit({"phase": 2, "kernel": "merge_sorted", "keys": "torch.int64", "entries": [ma, mb],
+           "check": "closed form", "equal": True, "gpu": gpu})
+    torch.cuda.empty_cache()
 
 
 # --- phases 3-5: the main path ---------------------------------------------------
@@ -587,7 +789,7 @@ def _zero_launches() -> None:
 
 
 def _phase3(rng, gpu, tmp, keep=False):
-    """bench.py's workload, timed twice; with ``keep`` the file and the
+    """bench.py's workload, timed once; with ``keep`` the file and the
     native core's table stay for phase 8: returns (path, table)."""
     import torch
 
@@ -601,21 +803,17 @@ def _phase3(rng, gpu, tmp, keep=False):
     t0 = time.perf_counter()
     write_reads(path, rng, MAIN_BASES, GENOME)
     gen_s = time.perf_counter() - t0
-    runs = []
-    got = None
-    for _ in range(2):
-        before = _launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        got = _port_counts(path, 21)
-        sec = time.perf_counter() - t0
-        after = _launches()
-        runs.append({"seconds": sec, "mbases_per_s": MAIN_BASES / 1e6 / sec,
-                     "peak_device_bytes": torch.cuda.max_memory_allocated(),
-                     "launches": {n: after[n] - before[n] for n in after}})
-    for r in runs:
-        if r["launches"]["encode_windows"] <= 0 or r["launches"]["rle_compact"] <= 0:
-            raise AssertionError(f"phase 3 skipped a kernel: {r['launches']}")
+    before = _launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = _port_counts(path, 21)
+    sec = time.perf_counter() - t0
+    after = _launches()
+    runs = [{"seconds": sec, "mbases_per_s": MAIN_BASES / 1e6 / sec,
+             "peak_device_bytes": torch.cuda.max_memory_allocated(),
+             "launches": {n: after[n] - before[n] for n in after}}]
+    if runs[0]["launches"]["encode_windows"] <= 0 or runs[0]["launches"]["rle_compact"] <= 0:
+        raise AssertionError(f"phase 3 skipped a kernel: {runs[0]['launches']}")
     t0 = time.perf_counter()
     exp = _native_counts(path, 21)
     native_s = time.perf_counter() - t0
@@ -645,6 +843,15 @@ def _write_main4(rng, tmp):
     return path, bases, genome, limit
 
 
+def _device_budget(dev) -> float:
+    """The device bytes the table's limits are derived to stay within."""
+    import torch
+
+    from krust_tpu_torch.ops.table import memory_budget
+
+    return memory_budget(torch.cuda.mem_get_info(dev)[1])
+
+
 def _main4_file(rng, tmp):
     """Phase 4's file and its native-core table, made anew."""
     path = _write_main4(rng, tmp)[0]
@@ -671,6 +878,9 @@ def _phase4(rng, gpu, tmp, keep=False):
                if launches[n] <= 0]
     if missing:
         raise AssertionError(f"main path never launched: {missing} ({launches})")
+    budget = _device_budget(dev)
+    if peak > budget:
+        raise AssertionError(f"phase 4 device peak {peak} > budget {budget:.0f}")
     t0 = time.perf_counter()
     exp = _native_counts(path, 21)
     native_s = time.perf_counter() - t0
@@ -678,7 +888,7 @@ def _phase4(rng, gpu, tmp, keep=False):
     _emit({"phase": 4, "k": 21, "bases": bases, "read_len": READ_LEN, "genome": genome,
            "epoch_entries": limit, "distinct": got.distinct, "total": got.total,
            "equal_to_native": True, "seconds": sec, "mbases_per_s": bases / 1e6 / sec,
-           "peak_device_bytes": peak,
+           "peak_device_bytes": peak, "device_budget_bytes": budget,
            "device_total_bytes": torch.cuda.mem_get_info(dev)[1],
            "launches": launches, "native_core_s": native_s, "gpu": gpu})
     if keep:
@@ -768,21 +978,17 @@ def _phase7(rng, gpu, tmp) -> dict:
                 or launches["encode_windows"] != 0):
             raise AssertionError(f"{what} did not take the dense path: {launches}")
 
-    runs, first = [], None
-    for _ in range(2):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        _zero_launches()
-        t0 = time.perf_counter()
-        got = _port_counts(path, k, min_quality=q)
-        sec = time.perf_counter() - t0
-        launches = _launches()
-        dense_only(launches, "phase 7")
-        _assert_equal(got, exp, "phase 7 k=21")
-        first = first or launches
-        runs.append({"seconds": sec, "mbases_per_s": MAIN_BASES / 1e6 / sec,
-                     "peak_device_bytes": torch.cuda.max_memory_allocated(),
-                     "launches": launches})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    got = _port_counts(path, k, min_quality=q)
+    sec = time.perf_counter() - t0
+    first = _launches()
+    dense_only(first, "phase 7")
+    _assert_equal(got, exp, "phase 7 k=21")
+    runs = [{"seconds": sec, "mbases_per_s": MAIN_BASES / 1e6 / sec,
+             "peak_device_bytes": torch.cuda.max_memory_allocated(), "launches": first}]
 
     # one parse of the same file: its invalid share, the dense packer's host
     # time, and the stream timed on both device routes
@@ -964,8 +1170,7 @@ def _phase9(rng, gpu, tmp, main) -> None:
             if group == "nccl":
                 init_distributed(f"file://{os.path.join(tmp, 'pg')}", rank=0, world_size=1)
             try:
-                order = (("plain", "sharded", "sharded", "plain") if group == "none"
-                         else ("sharded", "sharded"))
+                order = ("plain", "sharded") if group == "none" else ("sharded",)
                 runs = [count(path, None, exp, group, "encode_windows", "encode_dense", entry)
                         for entry in order]
                 for r in runs:
@@ -991,9 +1196,11 @@ def _phase9(rng, gpu, tmp, main) -> None:
 
 #: a child process that runs the port's CLI entry point (``kmix-torch``,
 #: ``krust_tpu_torch.cli:main``) or a streaming API call, as the spec file in
-#: argv[1] lists them, and writes each run's exit code, seconds, kernel
-#: launches and device peak to argv[2]. A CLI run reads the child's stdin
-#: and writes stdout and stderr to files.
+#: argv[1] lists them, and writes each run's exit code, seconds, count span,
+#: seconds per span name, table lifetimes (``pull_table`` spans: one a
+#: ``finalize``), part merges' entries, kernel launches and device peak to
+#: argv[2]. A CLI run reads the
+#: child's stdin and writes stdout and stderr to files.
 _CHILD = r"""
 import io, json, sys, time
 import numpy as np
@@ -1008,9 +1215,9 @@ from krust_tpu_torch.utils import tracing
 fns = {"encode_windows": encode_windows, "rle_compact": rle_compact,
        "merge_sorted": merge_sorted, "encode_dense": encode_dense,
        "merge_sorted_keys": merge_sorted_keys}
-spans = []
+spans = {}
 tracing.add_collector(
-    lambda kind, name, f: spans.append(f["elapsed_s"]) if name == "read_sequences" else None)
+    lambda kind, name, f: spans.setdefault(name, []).append(f) if kind == "span" else None)
 results = []
 for run in json.load(open(sys.argv[1])):
     for fn in fns.values():
@@ -1041,7 +1248,11 @@ for run in json.load(open(sys.argv[1])):
         np.save(run["codes"], np.fromiter(got.keys(), np.uint64, count=size))
         np.save(run["counts"], np.fromiter(got.values(), np.uint64, count=size))
         rc = 0
-    results.append({"rc": rc, "seconds": seconds, "count_s": sum(spans),
+    results.append({"rc": rc, "seconds": seconds,
+                    "count_s": sum(f["elapsed_s"] for f in spans.get("read_sequences", [])),
+                    "span_s": {n: sum(f["elapsed_s"] for f in fs) for n, fs in spans.items()},
+                    "lifetimes": len(spans.get("pull_table", [])),
+                    "part_merge_entries": [f["entries"] for f in spans.get("part_merge", [])],
                     "launches": {n: fn.launches for n, fn in fns.items()},
                     "peak_device_bytes": torch.cuda.max_memory_allocated()})
 json.dump(results, open(sys.argv[2], "w"))
@@ -1146,6 +1357,7 @@ def _phase10(rng, gpu, tmp, main, main4) -> None:
     from krust_tpu_torch.output import OutputFormat, format_packed_counts
     from krust_tpu_torch.parallel.mesh import init_distributed
 
+    torch.cuda.empty_cache()  # the children need the card this process has cached
     repo = os.path.dirname(os.path.abspath(__file__))
     fixtures = os.path.join(repo, "tests", "fixtures")
 
@@ -1192,10 +1404,14 @@ def _phase10(rng, gpu, tmp, main, main4) -> None:
     os.unlink(path)
 
     # C3: a genome-shaped FASTA through stdin (the chunked path), k = 31,
-    # histogram; the native side reads the file
+    # histogram; the native side reads the file. Cut to what the host's
+    # memory holds, never below a table lifetime
+    mem_total = _mem_total()
+    c3_bases = max(C3_MIN_BASES, min(C3_BASES, int(
+        mem_total / C3_HOST_SPARE / C3_HOST_BYTES_PER_BASE)))
     path = os.path.join(tmp, "genome.fa")
     t0 = time.perf_counter()
-    lengths = write_genome(path, rng, C3_BASES)
+    lengths = write_genome(path, rng, c3_bases)
     gen_s = time.perf_counter() - t0
     dev_runs = _cli_runs(tmp, "c3d", [["31", "-f", "histogram", "-q"]])
     dev_res, dev_proc = _child(tmp, dev_runs, "device", stdin=path)
@@ -1203,18 +1419,28 @@ def _phase10(rng, gpu, tmp, main, main4) -> None:
     nat_res, nat_proc = _child(tmp, nat_runs, "native")
     _same_cli_output(dev_runs, nat_runs, dev_res, nat_res, "C3")
     run = dev_res[0]
-    if run["launches"]["encode_windows"] <= 0 or run["launches"]["rle_compact"] <= 0:
-        raise AssertionError(f"C3 skipped a kernel: {run['launches']}")
+    missing = [n for n in ("encode_windows", "rle_compact", "merge_sorted")
+               if run["launches"][n] <= 0]
+    if missing:
+        raise AssertionError(f"C3 never launched {missing}: {run['launches']}")
+    if run["lifetimes"] < 2:
+        raise AssertionError(f"C3 ran {run['lifetimes']} table lifetime(s), not 2 or more")
+    budget = _device_budget(torch.device("cuda", 0))
+    if run["peak_device_bytes"] > budget:
+        raise AssertionError(f"C3 device peak {run['peak_device_bytes']} > budget {budget:.0f}")
     hist = _read(dev_runs[0]["stdout"]).split()
     distinct = sum(int(f) for f in hist[1::2])
     _emit({"phase": 10, "case": "C3", "bases": sum(lengths), "records": len(lengths),
            "file_bytes": os.path.getsize(path), "k": 31, "stdin": True,
            "chunk_bytes": api.DEFAULT_STDIN_CHUNK_BYTES, "distinct": distinct,
+           "host_mem_total_bytes": mem_total, "lifetimes": run["lifetimes"],
+           "largest_part_merge_entries": max(run["part_merge_entries"]),
+           "part_merge_entries": run["part_merge_entries"],
            "data_gen_s": gen_s, "seconds": run["seconds"], "count_s": run["count_s"],
-           "mbases_per_s": sum(lengths) / 1e6 / run["seconds"],
+           "span_s": run["span_s"], "mbases_per_s": sum(lengths) / 1e6 / run["seconds"],
            "child_s": dev_proc["seconds"], "peak_rss_bytes": dev_proc["peak_rss_bytes"],
-           "peak_device_bytes": run["peak_device_bytes"], "launches": run["launches"],
-           "native_child_s": nat_proc["seconds"],
+           "peak_device_bytes": run["peak_device_bytes"], "device_budget_bytes": budget,
+           "launches": run["launches"], "native_child_s": nat_proc["seconds"],
            "native_peak_rss_bytes": nat_proc["peak_rss_bytes"], "equal": True, "gpu": gpu})
     os.unlink(path)
 
@@ -1363,6 +1589,11 @@ def main() -> int:
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
+    if not os.path.isdir(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                      "krust_tpu_torch")):
+        print("chip_smoke: no krust_tpu_torch package beside this script", file=sys.stderr)
+        return 2
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1380,7 +1611,9 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()[-1]
     _emit({"phase": 1, "gpu": gpu, "torch": torch.__version__,
            "cuda": torch.version.cuda, "nvcc": nvcc, "python": sys.version.split()[0],
-           "kernel_build_s": build_s, "nvcc_build_s": _cuda.build_seconds})
+           "kernel_build_s": build_s, "nvcc_build_s": _cuda.build_seconds,
+           "host_mem_total_bytes": _mem_total(),
+           "device_total_bytes": torch.cuda.mem_get_info(dev)[1]})
     _emit({"phase": 1, "ptxas": _cuda.ptxas_report()})
 
     rng = np.random.default_rng(args.seed)
@@ -1394,7 +1627,9 @@ def main() -> int:
         _check_dense(rng, gpu, dev, results)
         _check_merge_keys(rng, gpu, dev, results)
         torch.cuda.empty_cache()
-        _check_merge_runs(g, gpu, dev)
+        merge_runs_points = _check_merge_runs(g, gpu, dev)
+        _check_large_index(gpu, dev)
+        _derive_limits(gpu, dev, _memory_fits(g, gpu, dev, merge_runs_points))
         torch.cuda.empty_cache()
 
     launches = {2: {"merge_sorted_keys": results.get("merge_sorted_keys", {}).get("launches")}}

@@ -127,6 +127,36 @@ def _merge_partials(
     return uniq, sums
 
 
+def _merge_tables(a, b) -> tuple[np.ndarray, np.ndarray]:
+    """The sum of two host tables, each (codes u64 ascending and distinct,
+    counts u64), in the same form. Takes the tables' last references:
+    ``a``'s counts take ``b``'s shared keys in place, and the codes are
+    freed once the merged codes are written, so the peak is the inputs and
+    one output array (a concatenation and its sort would hold three)."""
+    a_codes, a_counts = a
+    b_codes, b_counts = b
+    del a, b
+    na = a_codes.shape[0]
+    pos = np.searchsorted(a_codes, b_codes)
+    hit = pos < na
+    hit[hit] = a_codes[pos[hit]] == b_codes[hit]
+    a_counts[pos[hit]] += b_counts[hit]  # distinct keys: no index repeats
+    new = ~hit
+    dest = pos[new]  # where b's new keys land: before a[pos], after earlier new keys
+    del pos, hit
+    dest += np.arange(dest.shape[0])
+    keep = np.ones(na + dest.shape[0], bool)  # the output slots a fills, in order
+    keep[dest] = False
+    codes = np.empty(keep.shape[0], np.uint64)
+    codes[dest] = b_codes[new]
+    codes[keep] = a_codes
+    del a_codes, b_codes
+    counts = np.empty(keep.shape[0], np.uint64)
+    counts[dest] = b_counts[new]
+    counts[keep] = a_counts
+    return codes, counts
+
+
 def _quality_threshold(min_quality: int | None) -> int | None:
     """Phred threshold -> ASCII threshold, saturating (reference: src/run.rs:538)."""
     if min_quality is None:
@@ -494,12 +524,14 @@ class BatchEngine:
 
     @staticmethod
     def _merge_epochs(epochs, k) -> PackedCounts:
-        if len(epochs) == 1:
-            codes64, counts64 = epochs[0]  # already sorted and distinct
-        else:
-            codes64, counts64 = _merge_partials(
-                [e[0] for e in epochs], [e[1] for e in epochs]
-            )
+        """The table lifetimes' host tables (each sorted and distinct)
+        summed into one; empties ``epochs``, whose entries each merge
+        frees as it goes."""
+        if len(epochs) > 1:
+            with span("merge_lifetimes", lifetimes=len(epochs)):
+                while len(epochs) > 1:
+                    epochs.insert(0, _merge_tables(epochs.pop(0), epochs.pop(0)))
+        codes64, counts64 = epochs.pop()
         trace_event("unpack_kmers", unique_kmers=int(codes64.shape[0]))
         return PackedCounts(k, codes64, counts64)
 

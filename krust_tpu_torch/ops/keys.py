@@ -48,7 +48,7 @@ def keys_to_codes(keys: np.ndarray, k: int) -> np.ndarray:
     """Biased keys -> uint64 codes (the inverse of :func:`codes_to_keys`)."""
     bias, _ = _np_bias(k)
     udt = np.uint32 if k <= 16 else np.uint64
-    return (keys.view(udt) ^ bias).astype(np.uint64)
+    return (keys.view(udt) ^ bias).astype(np.uint64, copy=False)
 
 
 def parts_from_numpy(hi, lo, cnt, k: int, device=None, zero_is_padding: bool = False):

@@ -25,8 +25,9 @@ exchange the finished part before the pull.
 
 Kept from the TPU engine: the deferred n-sync (a sort's ``n_unique`` stays
 on the device until the next flush or compaction needs it, so batches
-queued since overlap the sort), the memory-scaled entry limits, and the
-one-shot adaptive retune of the epoch size. Not kept: the pull encodings
+queued since overlap the sort), the memory-scaled entry limits (their
+values measured on the H100: see ``EPOCH_ENTRY_LIMIT``), and the one-shot
+adaptive retune of the epoch size. Not kept: the pull encodings
 for a tunnelled host link (a direct PCIe copy of the table is the pull) and
 the 4M-entry bucket padding of a compaction's input (it bounds jit
 recompiles; nothing here compiles).
@@ -52,13 +53,71 @@ from .rle import rle_compact
 #: windows per table lifetime, with headroom below 2^31 (counts are int32)
 EPOCH_WINDOW_LIMIT = 1 << 31
 
-#: device memory the entry limit below was tuned for (the TPU engine's
-#: 16 GB part); other devices scale it by their own memory. Re-deriving the
-#: constant for the H100 is benchmark work (ROADMAP A7).
-_REFERENCE_MEM = 16 << 30
+#: device memory the entry limits below were derived for: the total that
+#: ``torch.cuda.mem_get_info`` reports on an NVIDIA H100 80GB HBM3 (700.00 W),
+#: chip_smoke.py phase 1's ``device_total_bytes``. Other devices scale the
+#: limits by their own memory.
+_REFERENCE_MEM = 85_017_493_504
 
-#: raw entries accumulated before an epoch sort, at _REFERENCE_MEM
-EPOCH_ENTRY_LIMIT = 240_000_000
+#: share of a device's memory the limits leave free: the CUDA context, the
+#: caching allocator's slack and the batches in flight
+MEM_RESERVE = 0.10
+
+#: device bytes of one epoch flush of n raw int64 keys, the raw keys
+#: included (concatenation, torch.sort, K2): FLUSH_FIXED_BYTES +
+#: FLUSH_BYTES_PER_KEY * n, the least-squares fit of chip_smoke.py phase 2's
+#: peaks at 2^26, 2^28 and 2^30 keys (3,236,155,904, 12,944,587,264 and
+#: 51,599,342,080 B on an NVIDIA H100 80GB HBM3, 700.00 W, torch 2.11)
+FLUSH_FIXED_BYTES = 29_840_555
+FLUSH_BYTES_PER_KEY = 48.03
+
+#: device bytes of a ``merge_runs`` compaction of n merge-input entries
+#: (int64 keys, int32 weights), the inputs included: the same fit of phase
+#: 2's ``merge_runs`` peaks at 134M, 336M and 872M entries (8,217,125,376,
+#: 20,527,888,896 and 53,277,047,296 B, the same card)
+MERGE_RUNS_FIXED_BYTES = 35_371_077
+MERGE_RUNS_BYTES_PER_ENTRY = 61.03
+
+#: a compacted part: an int64 key and an int32 count an entry
+PART_BYTES_PER_ENTRY = 12
+
+
+def memory_budget(mem: int) -> float:
+    """Device bytes the tables may take on a device of ``mem`` bytes."""
+    return mem * (1 - MEM_RESERVE)
+
+
+def fitting_entries(fixed: float, per_entry: float, mem: int) -> int:
+    """The largest multiple of 2^24 entries n with fixed + per_entry * n
+    within :func:`memory_budget` of ``mem``."""
+    n = int((memory_budget(mem) - fixed) // per_entry)
+    return max(n >> 24 << 24, 0)
+
+
+def epoch_peak_bytes(entries: int, flush_fixed: float = FLUSH_FIXED_BYTES,
+                     flush_per_key: float = FLUSH_BYTES_PER_KEY) -> float:
+    """A table lifetime's worst case at an epoch of ``entries`` raw int64
+    keys: the part kept from the epoch before (up to ``entries`` entries,
+    as :func:`_part` stores it) beside the flush of the next. The flush
+    after a part holds min(entries, EPOCH_WINDOW_LIMIT - entries) keys, so
+    this bounds it, and the first flush, at every epoch size; the limit
+    that fits it scales to a smaller card unchanged. The flush's fit may
+    be given (chip_smoke.py passes each run's own)."""
+    return flush_fixed + (PART_BYTES_PER_ENTRY + flush_per_key) * entries
+
+
+#: raw entries accumulated before an epoch sort, at _REFERENCE_MEM: the
+#: largest epoch whose :func:`epoch_peak_bytes` fits the budget,
+#: 1,258,291,200 (chip_smoke.py phase 2 derives it again from each run's
+#: fit)
+EPOCH_ENTRY_LIMIT = fitting_entries(
+    FLUSH_FIXED_BYTES, PART_BYTES_PER_ENTRY + FLUSH_BYTES_PER_KEY, _REFERENCE_MEM
+)
+
+#: the largest lifetime merge: two parts of EPOCH_WINDOW_LIMIT entries in
+#: all, beside the merged copy of them, then that copy beside K2's output
+#: (phase 2 measures 24.008 B an entry, the same card)
+LIFETIME_MERGE_BYTES = 2 * PART_BYTES_PER_ENTRY * EPOCH_WINDOW_LIMIT
 
 
 def _device_mem_bytes(device: torch.device) -> int | None:
@@ -69,8 +128,9 @@ def _device_mem_bytes(device: torch.device) -> int | None:
 
 
 def _scaled_limit(env: str, tuned: int, device: torch.device) -> int:
-    """``tuned`` scaled by device memory / 16 GB (floor 1M entries); the
-    env var overrides; unscaled where memory is unqueryable (CPU)."""
+    """``tuned`` scaled by device memory / _REFERENCE_MEM (floor 1M
+    entries); the env var overrides; unscaled where memory is unqueryable
+    (CPU)."""
     v = os.environ.get(env)
     if v:
         return max(int(v), 1)
@@ -99,25 +159,33 @@ def _epoch_concat_sort_rle(parts: list[torch.Tensor]):
 
 
 def _merge_compact(a, b):
-    """Merge two compacted (keys, counts) parts and re-compact (weighted)."""
+    """Merge two compacted (keys, counts) parts and re-compact (weighted).
+    Given the parts' last references, it frees each input once the merge
+    has read it and the merged copy once K2 has: a lifetime's last merge
+    holds two copies of its entries at a time, not four."""
     m_keys, m_cnt = merge_sorted(a[0], a[1], b[0], b[1])
+    del a, b
     return rle_compact(m_keys, m_cnt)
 
 
 def _part(o_keys, o_cnt, n):
     """A compacted part: the first round_pow2(n) entries of a full-length
-    RLE output, copied so the full-length buffers can be freed."""
+    RLE output, copied so the full-length buffers can be freed; the output
+    itself where that is all of it."""
     keep = min(_round_pow2(max(n, 1)), o_keys.numel())
+    if keep == o_keys.numel():
+        return o_keys, o_cnt, n
     return o_keys[:keep].clone(), o_cnt[:keep].clone(), n
 
 
 def _pull_table(t_keys, t_cnt, n: int, k: int) -> tuple[np.ndarray, np.ndarray]:
     """Device -> host copy of a table's first n entries: (codes u64, counts
-    u64), sorted by code."""
+    u64), sorted by code. The counts widen on the device, so the host
+    holds no int32 copy beside the u64 one."""
     with span("pull_table", entries=n):
         keys = t_keys[:n].cpu().numpy()
-        counts = t_cnt[:n].cpu().numpy()
-    return keys_to_codes(keys, k), counts.astype(np.uint64)
+        counts = t_cnt[:n].to(torch.int64).cpu().numpy().view(np.uint64)
+    return keys_to_codes(keys, k), counts
 
 
 def _no_part(k: int, device: torch.device):
@@ -130,11 +198,12 @@ class DeviceTable:
     """LSM accumulator of weighted (key, count) parts on one device."""
 
     #: merge-input entries (pending parts + compacted table) that force a
-    #: compaction, at _REFERENCE_MEM: it bounds the sort's working set.
-    #: Scaled by the device's memory; KRUST_PENDING_ENTRIES overrides. Tuned
-    #: on the TPU engine's part like EPOCH_ENTRY_LIMIT, and like it to be
-    #: re-derived for the H100 (ROADMAP A7).
-    PENDING_ENTRY_LIMIT = 280_000_000
+    #: compaction, at _REFERENCE_MEM: the largest input whose ``merge_runs``
+    #: peak (MERGE_RUNS_* fit) fits the budget, 1,241,513,984. Scaled by the
+    #: device's memory; KRUST_PENDING_ENTRIES overrides.
+    PENDING_ENTRY_LIMIT = fitting_entries(
+        MERGE_RUNS_FIXED_BYTES, MERGE_RUNS_BYTES_PER_ENTRY, _REFERENCE_MEM
+    )
 
     def __init__(self, k: int, device: torch.device, max_parts: int = 8):
         self._k = k
@@ -227,13 +296,20 @@ class EpochTable:
 
     Adaptive epoch sizing (from the TPU engine): after the first epoch
     resolves, its measured distinct count retunes the limit to
-    clamp(ADAPT_DUP_TARGET * distinct, ADAPT_MIN, device budget). Both
-    constants were measured on a TPU and are to be re-measured on the
-    H100 (ROADMAP A7). An explicit KRUST_EPOCH_ENTRIES pins the size and
-    disables adaptation.
+    clamp(ADAPT_DUP_TARGET * distinct, ADAPT_MIN, device budget). An
+    explicit KRUST_EPOCH_ENTRIES pins the size and disables adaptation.
     """
 
+    #: raw keys an epoch aims at per distinct key, from the third epoch on
+    #: (the first epoch's distinct count is read when the second flushes).
+    #: Kept at 16 on the H100 (tools/epoch_adapt_torch.py, NVIDIA H100 80GB
+    #: HBM3, 700.00 W): on chip_smoke.py phase 4's read set no target moves
+    #: a count (5.93-6.74 s for 16, 6.62-7.00 s for 8 after warm-up, one
+    #: 61.55 GB peak); on 3 epochs at 230x, 8 was faster in all three runs
+    #: (12.85-14.54 s against 13.74-15.79 s), an open question in PERF.md
     ADAPT_DUP_TARGET = 16
+    #: the smallest adapted epoch: one default batch (8192 rows x 4096
+    #: windows), so an epoch never holds less than a batch's keys
     ADAPT_MIN = 1 << 25
 
     def __init__(self, k: int, device: torch.device, max_parts: int = 8):
@@ -298,17 +374,17 @@ class EpochTable:
             self._raw = []
 
     def _merge_compacted(self) -> None:
-        runs = self._compacted
+        """Merge the parts pairwise to one. Each pair leaves the list as it
+        goes into the merge, so its buffers die as the merge consumes them."""
+        runs, self._compacted = self._compacted, []
         while len(runs) > 1:
             nxt = []
-            for i in range(0, len(runs) - 1, 2):
-                with span("part_merge"):
-                    o_keys, o_cnt, n_dev = _merge_compact(runs[i], runs[i + 1])
+            while len(runs) > 1:
+                with span("part_merge", entries=runs[0][0].numel() + runs[1][0].numel()):
+                    o_keys, o_cnt, n_dev = _merge_compact(runs.pop(0), runs.pop(0))
                     nxt.append(_part(o_keys, o_cnt, int(n_dev.item())))
                 del o_keys, o_cnt
-            if len(runs) % 2:
-                nxt.append(runs[-1])
-            runs = nxt
+            runs = nxt + runs
         self._compacted = runs
 
     def _finish(self):

@@ -79,16 +79,21 @@ def _exchange_and_merge(part, mesh: Mesh):
     """Send each entry of this rank's finished part ``(keys, counts, n)`` to
     its owner, merge what arrives: this rank's hash range as
     ``(keys, counts, n)`` on its device. A collective: every rank calls it.
-    Without a process group (a world of one) the part is already final."""
+    Without a process group (a world of one) the part is already final.
+    Given the part's last reference, it frees each buffer once the next
+    step has it: the merge holds what arrived, not what was sent."""
     keys, cnt, n = part
     if mesh.group is None:
         trace_event("shard_sizes", sizes=[n])
         return part
+    del part
     with span("sharded_exchange", devices=mesh.size) as fields:
         keys, cnt = keys[:n], cnt[:n]  # no sentinel among the first n
         owner, order = torch.sort(_owner_of(keys, mesh.size))
         keys, cnt = keys[order], cnt[order]
+        del order
         per_owner = torch.bincount(owner, minlength=mesh.size)
+        del owner
         # one all-to-all tells each rank what it gets from each rank and
         # what each rank sends in all
         meta = torch.stack([per_owner, per_owner.sum().expand(mesh.size)], 1)
@@ -99,7 +104,9 @@ def _exchange_and_merge(part, mesh: Mesh):
         r_keys, r_cnt = keys.new_empty(sum(recv)), cnt.new_empty(sum(recv))
         dist.all_to_all_single(r_keys, keys, recv, send, group=mesh.group)
         dist.all_to_all_single(r_cnt, cnt, recv, send, group=mesh.group)
-        fields["wire_bytes"] = int(got[:, 1].sum()) * (keys.element_size() + cnt.element_size())
+        del keys, cnt
+        fields["wire_bytes"] = int(got[:, 1].sum()) * (r_keys.element_size()
+                                                       + r_cnt.element_size())
         m_keys, m_cnt, n_dev = merge_runs(r_keys, r_cnt)
         n = int(n_dev.item())
     trace_event("shard_sizes", sizes=[n])

@@ -587,8 +587,11 @@ def test_epoch_limit_env_and_scaling(monkeypatch):
     assert t._epoch_limit == 12345 and t._adaptive is False
     monkeypatch.delenv("KRUST_EPOCH_ENTRIES")
     assert table_mod.epoch_entry_limit(cpu) == table_mod.EPOCH_ENTRY_LIMIT
-    monkeypatch.setattr(table_mod, "_device_mem_bytes", lambda d: 80 << 30)
-    assert table_mod.epoch_entry_limit(cpu) == 5 * table_mod.EPOCH_ENTRY_LIMIT
+    # the limit is the H100's own; a card of twice its memory gets twice it
+    monkeypatch.setattr(table_mod, "_device_mem_bytes", lambda d: table_mod._REFERENCE_MEM)
+    assert table_mod.epoch_entry_limit(cpu) == table_mod.EPOCH_ENTRY_LIMIT
+    monkeypatch.setattr(table_mod, "_device_mem_bytes", lambda d: 2 * table_mod._REFERENCE_MEM)
+    assert table_mod.epoch_entry_limit(cpu) == 2 * table_mod.EPOCH_ENTRY_LIMIT
     monkeypatch.setattr(table_mod, "_device_mem_bytes", lambda d: 1 << 20)
     assert table_mod.epoch_entry_limit(cpu) == 1 << 20
 

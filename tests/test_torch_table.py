@@ -160,8 +160,12 @@ def test_pending_entries_env_forces_a_merge_per_add(monkeypatch):
 def test_pending_limit_scales_and_counts_the_table_in(monkeypatch):
     monkeypatch.delenv("KRUST_PENDING_ENTRIES", raising=False)
     assert DeviceTable(21, CPU)._pending_limit == DeviceTable.PENDING_ENTRY_LIMIT
-    monkeypatch.setattr(table_mod, "_device_mem_bytes", lambda device: 80 << 30)
-    assert DeviceTable(21, CPU)._pending_limit == 5 * DeviceTable.PENDING_ENTRY_LIMIT
+    # the limit is the H100's own; a card of twice its memory gets twice it
+    monkeypatch.setattr(table_mod, "_device_mem_bytes", lambda device: table_mod._REFERENCE_MEM)
+    assert DeviceTable(21, CPU)._pending_limit == DeviceTable.PENDING_ENTRY_LIMIT
+    monkeypatch.setattr(table_mod, "_device_mem_bytes",
+                        lambda device: 2 * table_mod._REFERENCE_MEM)
+    assert DeviceTable(21, CPU)._pending_limit == 2 * DeviceTable.PENDING_ENTRY_LIMIT
     # a table near the limit leaves the floor of limit / 8 pending entries
     monkeypatch.setenv("KRUST_PENDING_ENTRIES", "800")
     merges = []

@@ -62,8 +62,8 @@ def main() -> int:
                     continue
                 out.write(json.dumps({"tree": tree, "turn": turn, **line}) + "\n")
                 if line["phase"] == 2:
-                    if "ms" not in line:
-                        continue  # an equality-only row
+                    if "ms" not in line or "kernel" not in line:
+                        continue  # an equality-only or memory row
                     row = rows.setdefault(row_key(line), {"parent": [], "change": []})
                     row[tree].append(line["ms"])
                     row["bound_ms"] = line["bound_ms"]
