@@ -61,17 +61,24 @@ Phases, printing JSON lines:
    must not), timed, with peak device memory; then 64 Mbases at k = 16
    (int32 keys) and a dirty 8 Mbase FASTQ at -Q 20 (K4 into the
    ``DeviceTable``). Every table equal to the native core's;
-9. the sharded path (``api.count_kmers_sharded_result``) in a world of one
-   on phase 3's file at k = 21: once with no process group (the exchange
-   runs no collective), timed, with peak device memory, after a plain
+9. the sharded path (``api.count_kmers_sharded_result``) on phase 3's file
+   at k = 21: once with no process group, whose mesh is every card (one
+   card: no exchange), timed, with peak device memory, after a plain
    count of the same file (``api.count_with_input``), then once inside a
    one-rank NCCL group (``file://`` init in the temporary directory,
    destroyed after), where the owner order, the split sizes and both
    ``all_to_all_single`` payloads run on the card; its ``wire_bytes`` and
    ``shard_sizes`` are printed. Counters set to 0 just before each count:
    K1 and K2 must launch, K4 must not. Then a dirty 8 Mbase FASTQ at -Q 20
-   in both settings (K4 must launch, K1 must not). Every table equal to
-   the native core's;
+   in both settings (K4 must launch, K1 must not). Then one process over a
+   mesh of 4 slots on the one card (and over every card when there are
+   two or more): phase 4's file at k = 21 with the table lifetime cut to
+   2^30 windows (two exchanges), the dirty FASTQ at -Q 20 and phase 3's
+   file at k = 15, each with the counters at 0 just before (K1 or K4, K2
+   and K3 must launch), its seconds, per-card peak, exchanges,
+   ``wire_bytes`` and the slots' shard sizes, the shards disjoint; then
+   ``krust_tpu_torch.entry.dryrun_multichip`` over every card. Every
+   table equal to the native core's;
 10. BASELINE.md's five configurations and the streaming path, through the
    entry points users call. Every CLI run is the port's CLI entry point
    (``krust_tpu_torch.cli:main``, the ``kmix-torch`` script) in a child
@@ -98,8 +105,9 @@ Phases, printing JSON lines:
    cross an epoch flush, so K1, K2 and K3 must launch.
 
 The second-to-last line is the kernel table (launches from each kernel's
-phase, times from phase 2), the last line the result. Any failed check
-raises: the script exits non-zero and prints no result.
+phase and from phase 9's mesh count of phase 4's file, times from phase
+2), the last line the result. Any failed check raises: the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -132,6 +140,11 @@ C5_BASES = 128_000_000
 C3_MIN_BASES = 2_300_000_000
 C3_HOST_BYTES_PER_BASE = 37.6
 C3_HOST_SPARE = 1.2
+
+#: phase 9's table lifetime for the mesh's count of phase 4's file (1.57G
+#: windows on an 80 GB card): half the default, so that the slots exchange
+#: twice
+MESH_WINDOW_LIMIT = 1 << 30
 
 #: the card's peaks the bound is taken against (NVIDIA H100 SXM data sheet):
 #: HBM bytes/s, and the float32 rate outside the tensor cores as the rate
@@ -1121,9 +1134,12 @@ def _phase8(rng, gpu, tmp, main):
     return main
 
 
-def _phase9(rng, gpu, tmp, main) -> None:
-    """The sharded path in a world of one: phase 3's file, then a dirty
-    FASTQ, each with no process group and inside a one-rank NCCL group."""
+def _phase9(rng, gpu, tmp, main, main4):
+    """The sharded path: phase 3's file, then a dirty FASTQ, each with no
+    process group (a mesh of every card) and inside a one-rank NCCL group;
+    then one process over a mesh of slots (:func:`_phase9_mesh`). Returns
+    phase 4's file and table (made anew when phase 4 did not keep them)
+    and the launches of the mesh's count of it."""
     import torch
     import torch.distributed as dist
 
@@ -1131,7 +1147,10 @@ def _phase9(rng, gpu, tmp, main) -> None:
     from krust_tpu_torch.parallel.mesh import init_distributed
     from krust_tpu_torch.utils import tracing
 
-    path, exp = _main_file(rng, tmp, main)
+    main = _main_file(rng, tmp, main)
+    main4 = main4 or _main4_file(rng, tmp)
+    path, exp = main
+    n_cards = torch.cuda.device_count()
     dirty = os.path.join(tmp, "dirty9.fq")
     write_reads(dirty, rng, 8_000_000, 1_000_000, fastq=True, n_rate=0.05,
                 soft_rate=0.05, lowq_rate=0.02)
@@ -1139,7 +1158,7 @@ def _phase9(rng, gpu, tmp, main) -> None:
     seen: dict = {}
 
     def collect(kind, name, fields):
-        if name in ("sharded_exchange", "shard_sizes"):
+        if name in ("sharded_exchange", "shard_sizes", "pull_table"):
             seen.setdefault(name, []).append(fields)
 
     def count(file, q, table, group, codec, other, entry="sharded"):
@@ -1156,8 +1175,13 @@ def _phase9(rng, gpu, tmp, main) -> None:
         launches = _launches()
         if launches[codec] <= 0 or launches["rle_compact"] <= 0 or launches[other] != 0:
             raise AssertionError(f"phase 9 {group} {entry} {file}: {launches}")
-        if bool(seen.get("sharded_exchange")) != (group == "nccl"):
+        # no group: the mesh is every card, so one card exchanges nothing
+        exchanged = group == "nccl" or (entry == "sharded" and n_cards >= 2)
+        if bool(seen.get("sharded_exchange")) != exchanged:
             raise AssertionError(f"phase 9 {group}: exchanges {seen}")
+        if entry == "sharded" and group == "none" and any(
+                len(e["sizes"]) != n_cards for e in seen["shard_sizes"]):
+            raise AssertionError(f"phase 9: the default mesh is not every card: {seen}")
         _assert_equal(got, table, f"phase 9 {group} {entry} {os.path.basename(file)}")
         return {"entry": entry, "seconds": sec,
                 "peak_device_bytes": torch.cuda.max_memory_allocated(),
@@ -1186,9 +1210,111 @@ def _phase9(rng, gpu, tmp, main) -> None:
             finally:
                 if group == "nccl":
                     dist.destroy_process_group()
+        launches = _phase9_mesh(gpu, main, main4, (dirty, exp_dirty), seen)
     finally:
         tracing.remove_collector(collect)
     os.unlink(dirty)
+    return main4, launches
+
+
+def _phase9_mesh(gpu, main, main4, dirty, seen) -> dict:
+    """One process counting over a mesh of slots: 4 slots on cuda:0 (and
+    every card, when there are two or more) count phase 4's file (k = 21,
+    the flat route, the window limit at 2^30 so that the slots exchange
+    twice), the dirty FASTQ at -Q 20 (the dense route) and phase 3's file
+    at k = 15 (int32 keys), each through ``count_kmers_sharded_result``
+    with the counters at 0 just before. The table must equal the native
+    core's (so no lifetime's table held a key twice: the shards were
+    disjoint), each exchange's shard sizes must sum to the entries pulled,
+    and after one exchange each shard's size must be the number of the
+    table's keys its hash owns. Then ``dryrun_multichip`` over every card.
+    Returns the launches of phase 4's file on the 4 slots."""
+    import contextlib
+    import io
+
+    import torch
+
+    from krust_tpu_torch import api
+    from krust_tpu_torch.entry import dryrun_multichip
+    from krust_tpu_torch.ops import table as table_mod
+    from krust_tpu_torch.ops.keys import codes_to_keys
+    from krust_tpu_torch.parallel.mesh import make_mesh
+    from krust_tpu_torch.parallel.sharded import _owner_of
+
+    (path3, exp3), (path4, exp4) = main, main4
+    t0 = time.perf_counter()
+    exp15 = _native_counts(path3, 15)
+    native15_s = time.perf_counter() - t0
+    cards = torch.cuda.device_count()
+    meshes = [("4 slots on cuda:0", make_mesh(devices=[torch.device("cuda", 0)] * 4))]
+    if cards >= 2:
+        meshes.append((f"{cards} cards", make_mesh()))
+        _emit({"phase": 9, "peer_access": [
+            [i == j or torch.cuda.can_device_access_peer(i, j) for j in range(cards)]
+            for i in range(cards)], "gpu": gpu})
+    counts = [("phase 4's file", path4, 21, None, exp4, "encode_windows", MESH_WINDOW_LIMIT),
+              ("dirty FASTQ", dirty[0], 21, 20, dirty[1], "encode_dense", None),
+              ("phase 3's file", path3, 15, None, exp15, "encode_windows", None)]
+    launches4 = {}
+    for name, mesh in meshes:
+        devices = sorted(set(mesh.devices), key=str)
+        for what, file, k, q, exp, codec, window_limit in counts:
+            other = "encode_dense" if codec == "encode_windows" else "encode_windows"
+            seen.clear()
+            torch.cuda.empty_cache()
+            for d in devices:
+                torch.cuda.reset_peak_memory_stats(d)
+            limit = table_mod.EPOCH_WINDOW_LIMIT
+            table_mod.EPOCH_WINDOW_LIMIT = window_limit or limit
+            _zero_launches()
+            try:
+                t0 = time.perf_counter()
+                got = api.count_kmers_sharded_result(file, k, min_quality=q, mesh=mesh)
+                sec = time.perf_counter() - t0
+            finally:
+                table_mod.EPOCH_WINDOW_LIMIT = limit
+            launches = _launches()
+            tag = f"phase 9 {name}, {what}"
+            if (min(launches[n] for n in (codec, "rle_compact", "merge_sorted")) <= 0
+                    or launches[other] != 0):
+                raise AssertionError(f"{tag}: a kernel of the path did not launch: {launches}")
+            _assert_equal(got, exp, tag)
+            exchanges = seen.get("sharded_exchange", [])
+            sizes = [e["sizes"] for e in seen.get("shard_sizes", [])]
+            pulled = [e["entries"] for e in seen.get("pull_table", [])]
+            if len(exchanges) < (2 if window_limit else 1) or len(sizes) != len(exchanges):
+                raise AssertionError(f"{tag}: {len(exchanges)} exchanges")
+            if any(len(z) != mesh.size for z in sizes) or [sum(z) for z in sizes] != pulled:
+                raise AssertionError(f"{tag}: shard sizes {sizes}, pulled {pulled}")
+            if len(sizes) == 1:
+                keys = torch.from_numpy(codes_to_keys(got.codes, k))
+                owned = torch.bincount(_owner_of(keys, mesh.size), minlength=mesh.size)
+                if owned.tolist() != sizes[0]:
+                    raise AssertionError(f"{tag}: shards {sizes[0]}, owners {owned.tolist()}")
+            peaks = {str(d): torch.cuda.max_memory_allocated(d) for d in devices}
+            budget = _device_budget(devices[0])
+            if max(peaks.values()) > budget:
+                raise AssertionError(f"{tag}: device peak {peaks} > budget {budget:.0f}")
+            row = {"phase": 9, "mesh": name, "slots": [str(d) for d in mesh.devices],
+                   "count": what, "k": k, "min_quality": q,
+                   "file_bytes": os.path.getsize(file), "window_limit": window_limit,
+                   "distinct": got.distinct, "equal_to_native": True, "seconds": sec,
+                   "peak_device_bytes": peaks, "launches": launches,
+                   "exchanges": len(exchanges),
+                   "exchange_s": [e["elapsed_s"] for e in exchanges],
+                   "wire_bytes": [e["wire_bytes"] for e in exchanges],
+                   "sent_bytes": [e["sent_bytes"] for e in exchanges],
+                   "shard_sizes": sizes, "shards_disjoint": True, "gpu": gpu}
+            if k == 15:
+                row["native_core_s"] = native15_s
+            _emit(row)
+            if name == meshes[0][0] and window_limit:
+                launches4 = launches
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        dryrun_multichip(cards)
+    _emit({"phase": 9, "dryrun_multichip": out.getvalue().strip(), "gpu": gpu})
+    return launches4
 
 
 # --- phase 10: the public surface -------------------------------------------------
@@ -1638,7 +1764,7 @@ def main() -> int:
         if 3 in phases:
             main = _phase3(rng, gpu, tmp, keep=bool({8, 9, 10} & phases))
         if 4 in phases:
-            launches[4], main4 = _phase4(rng, gpu, tmp, keep=10 in phases)
+            launches[4], main4 = _phase4(rng, gpu, tmp, keep=bool({9, 10} & phases))
         if 5 in phases:
             _phase5(rng, gpu, tmp)
         if 6 in phases:
@@ -1648,7 +1774,7 @@ def main() -> int:
         if 8 in phases:
             main = _phase8(rng, gpu, tmp, main)
         if 9 in phases:
-            _phase9(rng, gpu, tmp, main)
+            main4, launches[9] = _phase9(rng, gpu, tmp, main, main4)
         if 10 in phases:
             _phase10(rng, gpu, tmp, main, main4)
 
@@ -1658,7 +1784,9 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "redesigned": redesigned,
                         "launches": launches.get(phase, {}).get(name),
-                        "launches_phase": phase, "max_abs_err": r.get("max_abs_err"),
+                        "launches_phase": phase,
+                        "launches_local_mesh": launches.get(9, {}).get(name),
+                        "max_abs_err": r.get("max_abs_err"),
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
                         "library_ms": r.get("library_ms")})

@@ -220,16 +220,18 @@ def count_kmers_sharded(
     mesh=None,
     config: EngineConfig | None = None,
 ) -> dict[str, int]:
-    """Count across the GPUs of a mesh, one process per GPU.
+    """Count across the GPUs of a mesh: every local GPU by default.
 
     The distributed entry point (new capability — the reference is
-    single-process; SURVEY.md §5): each rank counts its own input on its own
-    device, and the rank-local tables merge by a hash-sharded all-to-all.
-    Every rank calls this with its own file; each gets the exact counts of
-    its own hash range, disjoint from the others' (in a world of one, the
-    whole table). For several GPUs start one process per GPU
-    (``torchrun --nproc-per-node N``) and call
-    :func:`krust_tpu_torch.parallel.mesh.init_distributed` first.
+    single-process; SURVEY.md §5). With no process group, one call counts
+    the file over every GPU this process sees (or ``mesh``'s devices, or
+    ``config.device`` alone when it names one): each GPU counts its share
+    of the batches in its own table, the tables exchange their entries by a
+    hash of the key once per epoch, and the result is the whole exact
+    table. Across hosts, start one process per GPU (``torchrun``) and call
+    :func:`krust_tpu_torch.parallel.mesh.init_distributed` first: every
+    rank then calls this with its own file and gets the exact counts of its
+    own hash range, disjoint from the other ranks'.
     """
     counts = count_kmers_sharded_result(path, k, fmt, min_quality, mesh, config)
     return counts.to_string_dict()

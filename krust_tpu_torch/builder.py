@@ -142,8 +142,8 @@ class KmerCounter:
         return self._filtered(counts)
 
     def count_sharded(self, path: str | os.PathLike, mesh=None) -> dict[str, int]:
-        """Count across the GPUs of a mesh, one process per GPU: this
-        rank's hash range of the exact table. See
+        """Count across the GPUs of a mesh, every local GPU by default: the
+        exact table (in a process group, this rank's hash range of it). See
         :func:`krust_tpu_torch.api.count_kmers_sharded`."""
         counts = api.count_kmers_sharded(
             path,

@@ -190,8 +190,8 @@ KRUST_API int krust_encode_dense_i32(int device, const void* packed2,
                                      const void* badbits, int64_t rows,
                                      int64_t p4, int64_t p8, int k, int64_t w,
                                      void* out, void* stream) {
-  const int err = set_device(device);
-  if (err) return err;
+  const DeviceScope scope(device);
+  if (scope.error()) return scope.error();
   return launch<int32_t>(packed2, badbits, rows, p4, p8, k, w, out, stream);
 }
 
@@ -199,7 +199,7 @@ KRUST_API int krust_encode_dense_i64(int device, const void* packed2,
                                      const void* badbits, int64_t rows,
                                      int64_t p4, int64_t p8, int k, int64_t w,
                                      void* out, void* stream) {
-  const int err = set_device(device);
-  if (err) return err;
+  const DeviceScope scope(device);
+  if (scope.error()) return scope.error();
   return launch<int64_t>(packed2, badbits, rows, p4, p8, k, w, out, stream);
 }

@@ -1,6 +1,6 @@
 // Shared helpers of the port's hand-written Hopper kernels: the exported
 // functions' linkage (KRUST_API), the device selection every entry point
-// starts with (set_device) and the key form (KeyTraits: bias and sentinel
+// starts with (DeviceScope) and the key form (KeyTraits: bias and sentinel
 // per key width). What only the two codec kernels share, their tile's
 // window arithmetic, poison step and staged store, is in codec_tile.cuh.
 //
@@ -20,11 +20,32 @@
 
 #define KRUST_API extern "C" __attribute__((visibility("default")))
 
-// This library links its own CUDA runtime, whose current device is per
-// thread and separate from PyTorch's: select the tensors' device first.
-inline int set_device(int device) {
-  return static_cast<int>(cudaSetDevice(device));
-}
+// This library links its own CUDA runtime; the current device is per
+// thread, and both runtimes read it from the thread's current context. An
+// entry point selects its tensors' device for its launches and gives the
+// thread back the device it found, so that one thread can launch on
+// several cards and nothing of the caller's depends on the last launch.
+class DeviceScope {
+ public:
+  explicit DeviceScope(int device) {
+    err_ = static_cast<int>(cudaGetDevice(&prev_));
+    if (err_ == 0 && prev_ != device) {
+      err_ = static_cast<int>(cudaSetDevice(device));
+      restore_ = err_ == 0;
+    }
+  }
+  ~DeviceScope() {
+    if (restore_) cudaSetDevice(prev_);
+  }
+  DeviceScope(const DeviceScope&) = delete;
+  DeviceScope& operator=(const DeviceScope&) = delete;
+  int error() const { return err_; }
+
+ private:
+  int prev_ = 0;
+  int err_ = 0;
+  bool restore_ = false;
+};
 
 template <typename Key>
 struct KeyTraits;

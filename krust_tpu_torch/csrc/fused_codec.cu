@@ -138,8 +138,8 @@ KRUST_API int krust_encode_windows_i32(int device, const void* packed, const voi
                                        int64_t n_inv, int64_t covered, int k,
                                        int64_t n_windows, void* out,
                                        void* stream) {
-  const int err = set_device(device);
-  if (err) return err;
+  const DeviceScope scope(device);
+  if (scope.error()) return scope.error();
   return launch<int32_t>(packed, invpos, n_inv, covered, k, n_windows, out,
                          stream);
 }
@@ -148,8 +148,8 @@ KRUST_API int krust_encode_windows_i64(int device, const void* packed, const voi
                                        int64_t n_inv, int64_t covered, int k,
                                        int64_t n_windows, void* out,
                                        void* stream) {
-  const int err = set_device(device);
-  if (err) return err;
+  const DeviceScope scope(device);
+  if (scope.error()) return scope.error();
   return launch<int64_t>(packed, invpos, n_inv, covered, k, n_windows, out,
                          stream);
 }

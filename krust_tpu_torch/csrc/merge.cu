@@ -225,23 +225,23 @@ KRUST_API int64_t krust_merge_tile(int key_bytes) {
 KRUST_API int krust_merge_i32(int device, const void* a, const void* ac, int64_t ma,
                               const void* b, const void* bc, int64_t mb,
                               void* out_keys, void* out_cnt, void* splits, void* stream) {
-  const int err = set_device(device);
-  if (err) return err;
+  const DeviceScope scope(device);
+  if (scope.error()) return scope.error();
   return launch<int32_t>(a, ac, ma, b, bc, mb, out_keys, out_cnt, splits, stream);
 }
 
 KRUST_API int krust_merge_i64(int device, const void* a, const void* ac, int64_t ma,
                               const void* b, const void* bc, int64_t mb,
                               void* out_keys, void* out_cnt, void* splits, void* stream) {
-  const int err = set_device(device);
-  if (err) return err;
+  const DeviceScope scope(device);
+  if (scope.error()) return scope.error();
   return launch<int64_t>(a, ac, ma, b, bc, mb, out_keys, out_cnt, splits, stream);
 }
 
 // K5: a and b m uint32 keys each, out 2m; compared unsigned
 KRUST_API int krust_merge_keys_u32(int device, const void* a, const void* b, int64_t m,
                                    void* out, void* splits, void* stream) {
-  const int err = set_device(device);
-  if (err) return err;
+  const DeviceScope scope(device);
+  if (scope.error()) return scope.error();
   return launch<uint32_t>(a, nullptr, m, b, nullptr, m, out, nullptr, splits, stream);
 }

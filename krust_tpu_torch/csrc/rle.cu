@@ -436,15 +436,15 @@ KRUST_API int64_t krust_rle_scratch_bytes(int64_t n, int key_bytes) {
 KRUST_API int krust_rle_i32(int device, const void* keys, const void* cnt, int64_t n,
                             void* out_keys, void* out_cnt, void* n_unique,
                             void* scratch, void* stream) {
-  const int err = set_device(device);
-  if (err) return err;
+  const DeviceScope scope(device);
+  if (scope.error()) return scope.error();
   return launch<int32_t>(keys, cnt, n, out_keys, out_cnt, n_unique, scratch, stream);
 }
 
 KRUST_API int krust_rle_i64(int device, const void* keys, const void* cnt, int64_t n,
                             void* out_keys, void* out_cnt, void* n_unique,
                             void* scratch, void* stream) {
-  const int err = set_device(device);
-  if (err) return err;
+  const DeviceScope scope(device);
+  if (scope.error()) return scope.error();
   return launch<int64_t>(keys, cnt, n, out_keys, out_cnt, n_unique, scratch, stream);
 }

@@ -23,6 +23,7 @@ return :class:`PackedCounts`.
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
@@ -440,7 +441,7 @@ class BatchEngine:
 
     def _feed_streams(
         self, streams, k, min_quality, table, epochs, on_windows, charge=None,
-        batch_span="encode_count_batch",
+        batch_span="encode_count_batch", devices=None,
     ) -> int:
         """Feed one parsed stream's batches into ``table`` (shared by the
         eager and chunked ingest paths and the sharded count); returns the
@@ -450,11 +451,13 @@ class BatchEngine:
         plus invalid positions); the dense path (K4 on haloed 2-bit rows
         plus an invalid bitmask) for dirtier streams and for block
         geometries the flat layout cannot hold, as ``krust_tpu`` routes.
-        Each batch charges ``charge`` windows (default: its own rows x
-        ``block_windows``) to the table's epoch; ``table.finalize()`` is
-        appended to ``epochs`` before a charge would reach
-        ``EPOCH_WINDOW_LIMIT``. Each batch's encode and add is one
-        ``batch_span``.
+        Batch i is staged on ``devices[i % n]`` (default: the engine's
+        device alone), each device's copies on its own current stream, and
+        the table takes the batches in that order. Each batch charges
+        ``charge`` windows (default: its own rows x ``block_windows``) to the
+        table's epoch; ``table.finalize()`` is appended to ``epochs`` before
+        a group of n batches could reach ``EPOCH_WINDOW_LIMIT``. Each
+        batch's encode and add is one ``batch_span``.
         """
         from ..io.packer import flat_batches, pack_buffer_2bit
         from ..ops import table as table_mod
@@ -462,15 +465,17 @@ class BatchEngine:
         from ..ops.fused_codec import TAIL_BYTES, encode_windows
 
         cfg = self.config
-        dev = self.device
+        devices = devices or (self.device,)
         thr = _quality_threshold(min_quality) if streams.qual is not None else None
         qual_stream = streams.qual if thr is not None else None
-        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        streams_of = {d: torch.cuda.current_stream(d) for d in devices if d.type == "cuda"}
+        staged_on = itertools.cycle(devices)  # stage runs in batch order
 
         def to_device(*arrays):
-            if stream is None:
+            dev = next(staged_on)
+            if dev not in streams_of:
                 return tuple(_to_device(a, dev) for a in arrays)
-            with torch.cuda.stream(stream):
+            with torch.cuda.stream(streams_of[dev]):
                 return tuple(_to_device(a, dev) for a in arrays)
 
         flat = flat_batches(
@@ -514,7 +519,10 @@ class BatchEngine:
             for arrays, batch in staged:
                 rows, windows = rows_and_windows(batch)
                 batch_windows = charge or rows * batch.block_windows
-                if table.windows_this_epoch + batch_windows >= table_mod.EPOCH_WINDOW_LIMIT:
+                if n_batches % len(devices) == 0 and (
+                    table.windows_this_epoch + len(devices) * batch_windows
+                    >= table_mod.EPOCH_WINDOW_LIMIT
+                ):
                     epochs.append(table.finalize())  # int32 count headroom
                 with span(batch_span, rows=rows):
                     table.add(step(arrays, batch), *weights, batch_windows)

@@ -1,5 +1,6 @@
-"""Multi-GPU counting: one process per device, rank-local tables and a
-hash-sharded exchange (``torch.distributed``)."""
+"""Multi-GPU counting: one process over every local GPU (or one process per
+GPU, ``torch.distributed``), a table per device and a hash-sharded
+exchange."""
 
 from .mesh import Mesh, init_distributed, make_mesh
 from .sharded import EpochShardedTable, ShardedTable, count_sharded

@@ -28,7 +28,7 @@ from krust_tpu_torch.ops.merge import (
 from krust_tpu_torch.ops.rle import rle_compact, rle_compact_plain
 from krust_tpu_torch.ops import table as table_mod
 from krust_tpu_torch.ops.table import DeviceTable
-from krust_tpu_torch.parallel.mesh import init_distributed
+from krust_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from krust_tpu_torch.parallel.sharded import count_sharded
 from krust_tpu_torch.utils import tracing
 from krust_tpu_torch.utils.config import EngineConfig
@@ -504,6 +504,31 @@ def test_sharded_count_on_cuda_matches_native(dev, monkeypatch, k, dirty):
     np.testing.assert_array_equal(got.counts, exp.counts)
     assert codec.launches > before[codec] and other.launches == before[other]
     assert rle_compact.launches > before[rle_compact]
+
+
+@pytest.mark.parametrize("dirty", [False, True], ids=["flat", "dense"])
+@pytest.mark.parametrize("k", [5, 16, 21, 32])
+@pytest.mark.parametrize("cards", ["4 slots on one card", "every card"])
+def test_local_mesh_on_cuda_matches_native(dev, monkeypatch, k, dirty, cards):
+    """One process over a mesh on the card(s): batches dealt to the slots,
+    an exchange every two groups (K3 and K2 per destination, the gather by
+    K3 on the first card), the table equal to the native core's; the
+    kernels leave the current device as they found it."""
+    if cards == "every card" and torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    mesh = (make_mesh(devices=["cuda:0"] * 4) if cards == "4 slots on one card"
+            else make_mesh())
+    monkeypatch.setattr(table_mod, "EPOCH_WINDOW_LIMIT", 3 * mesh.size * 8 * 256)
+    s = _sharded_stream(k, dirty)
+    codec = encode_dense if dirty else encode_windows
+    before = {f: f.launches for f in (codec, merge_sorted, rle_compact)}
+    current = torch.cuda.current_device()
+    got = count_sharded(s, k, mesh=mesh, config=EngineConfig(block_windows=256, batch_rows=8))
+    exp = NativeEngine().count(s, k)
+    np.testing.assert_array_equal(got.codes, exp.codes)
+    np.testing.assert_array_equal(got.counts, exp.counts)
+    assert all(f.launches > n for f, n in before.items())
+    assert torch.cuda.current_device() == current
 
 
 @pytest.mark.parametrize("k", [5, 21])

@@ -272,8 +272,12 @@ def test_make_mesh_and_init_distributed(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="2 devices"):
         make_mesh(2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setenv("LOCAL_RANK", "3")
-    assert make_mesh().device == torch.device("cuda", 3)
+    # no process group: every visible GPU, whatever LOCAL_RANK says
+    every = make_mesh()
+    assert every.devices == tuple(torch.device("cuda", i) for i in range(4))
+    assert (every.group, every.size, every.device) == (None, 4, torch.device("cuda", 0))
     calls = []
     monkeypatch.setattr(mesh_mod.dist, "init_process_group",
                         lambda *a, **kw: calls.append((a, kw)))
