@@ -70,7 +70,15 @@ Phases, printing JSON lines:
    ``all_to_all_single`` payloads run on the card; its ``wire_bytes`` and
    ``shard_sizes`` are printed. Counters set to 0 just before each count:
    K1 and K2 must launch, K4 must not. Then a dirty 8 Mbase FASTQ at -Q 20
-   in both settings (K4 must launch, K1 must not). Then one process over a
+   in both settings (K4 must launch, K1 must not). Inside the NCCL group,
+   a mesh of 4 slots of cuda:0 counts phase 3's file at k = 21 and the
+   dirty FASTQ at -Q 20, counters at 0 just before each (K1 or K4, K2 and
+   K3 must launch; 4 shard sizes an exchange, nothing sent between
+   processes). Then two ranks of a gloo group in two children on the one
+   card, 2 slots of it each, rank 0 on phase 3's file and rank 1 on the
+   dirty FASTQ: their union equal to the native tables summed, each rank's
+   keys its own slots'; where gloo refuses CUDA tensors in
+   ``all_to_all_single``, the line says so. Then one process over a
    mesh of 4 slots on the one card (and over every card when there are
    two or more): phase 4's file at k = 21 with the table lifetime cut to
    2^30 windows (two exchanges), the dirty FASTQ at -Q 20 and phase 3's
@@ -105,8 +113,8 @@ Phases, printing JSON lines:
    cross an epoch flush, so K1, K2 and K3 must launch.
 
 The second-to-last line is the kernel table (launches from each kernel's
-phase and from phase 9's mesh count of phase 4's file, times from phase
-2), the last line the result. Any failed check raises: the script exits
+phase, from phase 9's mesh count of phase 4's file and from its 4-slot
+counts in the NCCL group, times from phase 2), the last line the result. Any failed check raises: the script exits
 non-zero and prints no result.
 """
 
@@ -1207,14 +1215,198 @@ def _phase9(rng, gpu, tmp, main, main4):
                        "min_quality": 20, "invalid_share": "~0.07",
                        "distinct": exp_dirty.distinct, "equal_to_native": True, **run,
                        "gpu": gpu})
+                if group == "nccl":
+                    group_slots = _phase9_group_slots(gpu, main, (dirty, exp_dirty), seen)
             finally:
                 if group == "nccl":
                     dist.destroy_process_group()
         launches = _phase9_mesh(gpu, main, main4, (dirty, exp_dirty), seen)
     finally:
         tracing.remove_collector(collect)
+    _phase9_two_ranks(gpu, tmp, main, (dirty, exp_dirty))
     os.unlink(dirty)
-    return main4, launches
+    return main4, launches, group_slots
+
+
+def _phase9_group_slots(gpu, main, dirty, seen) -> dict:
+    """Inside the one-rank NCCL group: a mesh of 4 slots of cuda:0 counts
+    phase 3's file at k = 21 (the flat route) and the dirty FASTQ at -Q 20
+    (the dense route) through ``count_kmers_sharded_result``, the counters
+    at 0 just before each. K1 or K4, K2 and K3 must launch; every exchange
+    lists 4 shard sizes and sends nothing between processes; the table
+    equals the native core's. Returns the launches of both counts, summed."""
+    import torch
+
+    from krust_tpu_torch import api
+    from krust_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * 4)
+    if mesh.group is None or (mesh.size, mesh.world) != (4, 1):
+        raise AssertionError(f"phase 9: not a one-rank group of 4 slots: {mesh}")
+    total: dict = {}
+    for what, (file, exp), q, codec in (("phase 3's file", main, None, "encode_windows"),
+                                        ("dirty FASTQ", dirty, 20, "encode_dense")):
+        other = "encode_dense" if codec == "encode_windows" else "encode_windows"
+        seen.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        got = api.count_kmers_sharded_result(file, 21, min_quality=q, mesh=mesh)
+        sec = time.perf_counter() - t0
+        launches = _launches()
+        tag = f"phase 9 nccl, 4 slots, {what}"
+        if (min(launches[n] for n in (codec, "rle_compact", "merge_sorted")) <= 0
+                or launches[other] != 0):
+            raise AssertionError(f"{tag}: a kernel of the path did not launch: {launches}")
+        _assert_equal(got, exp, tag)
+        exchanges = seen.get("sharded_exchange", [])
+        sizes = [e["sizes"] for e in seen.get("shard_sizes", [])]
+        if (not exchanges or len(sizes) != len(exchanges) or any(len(z) != 4 for z in sizes)
+                or any(e["process_bytes"] for e in exchanges)):
+            raise AssertionError(f"{tag}: exchanges {exchanges}, shard sizes {sizes}")
+        _emit({"phase": 9, "process_group": "nccl", "mesh": "4 slots on cuda:0",
+               "count": what, "k": 21, "min_quality": q, "distinct": got.distinct,
+               "equal_to_native": True, "seconds": sec,
+               "peak_device_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+               "exchange_s": [e["elapsed_s"] for e in exchanges],
+               "wire_bytes": [e["wire_bytes"] for e in exchanges],
+               "process_bytes": [e["process_bytes"] for e in exchanges],
+               "sent_bytes": [e["sent_bytes"] for e in exchanges],
+               "shard_sizes": sizes, "gpu": gpu})
+        for n, v in launches.items():
+            total[n] = total.get(n, 0) + v
+    return total
+
+
+#: one rank of phase 9's two-rank gloo group on the one card: argv is the
+#: rank, the group's init file and a JSON spec (each rank's file, quality
+#: and result paths). It first asks gloo for an ``all_to_all_single`` of
+#: CUDA tensors; where gloo refuses, it writes the error and counts
+#: nothing. Else it counts its file over 2 slots of cuda:0 with the
+#: counters at 0 just before and writes its table, seconds, launches and
+#: exchanges.
+_RANK_CHILD = r"""
+import json, sys, time
+from datetime import timedelta
+import numpy as np
+import torch
+import torch.distributed as dist
+from krust_tpu_torch import api
+from krust_tpu_torch.ops.codec import encode_dense
+from krust_tpu_torch.ops.fused_codec import encode_windows
+from krust_tpu_torch.ops.merge import merge_sorted
+from krust_tpu_torch.ops.rle import rle_compact
+from krust_tpu_torch.parallel.mesh import init_distributed, make_mesh
+from krust_tpu_torch.utils import tracing
+
+rank, spec = int(sys.argv[1]), json.loads(sys.argv[3])
+init_distributed("file://" + sys.argv[2], rank=rank, world_size=2, backend="gloo",
+                 timeout=timedelta(seconds=120))
+out = {"rank": rank}
+try:
+    probe = torch.full((2,), rank, dtype=torch.int64, device="cuda:0")
+    try:
+        dist.all_to_all_single(torch.empty_like(probe), probe)
+        out["gloo_takes_cuda"] = True
+    except RuntimeError as e:
+        out.update(gloo_takes_cuda=False, error=str(e).strip().splitlines()[0])
+    if out["gloo_takes_cuda"]:
+        fns = {"encode_windows": encode_windows, "encode_dense": encode_dense,
+               "rle_compact": rle_compact, "merge_sorted": merge_sorted}
+        ex = []
+        tracing.add_collector(
+            lambda kind, name, f: ex.append(f) if name == "sharded_exchange" else None)
+        mesh = make_mesh(devices=["cuda:0"] * 2)
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        got = api.count_kmers_sharded_result(spec["files"][rank], 21,
+                                             min_quality=spec["q"][rank], mesh=mesh)
+        out.update(seconds=time.perf_counter() - t0, mesh_size=mesh.size,
+                   launches={n: fn.launches for n, fn in fns.items()}, exchanges=ex)
+        np.savez(spec["tables"][rank], codes=got.codes, counts=got.counts)
+finally:
+    dist.destroy_process_group()
+json.dump(out, open(spec["out"][rank], "w"))
+"""
+
+
+def _sum_tables(a, b):
+    """Two (codes, counts) tables as one, the counts of shared codes summed."""
+    codes = np.concatenate([a[0], b[0]])
+    uniq, inv = np.unique(codes, return_inverse=True)
+    counts = np.zeros(uniq.shape[0], np.uint64)
+    np.add.at(counts, inv, np.concatenate([a[1], b[1]]))
+    return uniq, counts
+
+
+def _phase9_two_ranks(gpu, tmp, main, dirty) -> None:
+    """Two ranks of a gloo group in two children on the one card (NCCL
+    refuses two ranks on one card), each over 2 slots of cuda:0: rank 0
+    counts phase 3's file (the flat route), rank 1 the dirty FASTQ at -Q 20
+    (the dense route), so the ranks' routes differ. Where gloo takes CUDA
+    tensors, the tables must be disjoint, each rank's keys owned by its own
+    two global slots, their union equal to the two native tables summed,
+    and each rank's codec kernel, K2 and K3 launched; where it does not,
+    the line records gloo's error."""
+    import torch
+
+    from krust_tpu_torch.ops.keys import codes_to_keys
+    from krust_tpu_torch.parallel.sharded import _owner_of
+
+    (path3, exp3), (path_d, exp_d) = main, dirty
+    spec = {"files": [path3, path_d], "q": [None, 20],
+            "tables": [os.path.join(tmp, f"rank{r}.npz") for r in range(2)],
+            "out": [os.path.join(tmp, f"rank{r}.json") for r in range(2)]}
+    init = os.path.join(tmp, "pg2")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK_CHILD, str(r), init, json.dumps(spec)],
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if rcs != [0, 0]:
+        raise AssertionError(f"phase 9 two ranks: children exited {rcs}")
+    outs = []
+    for path in spec["out"]:
+        with open(path) as f:
+            outs.append(json.load(f))
+    if not outs[0]["gloo_takes_cuda"]:
+        _emit({"phase": 9, "two_ranks_on_one_card": "not run: gloo refuses CUDA tensors in "
+               "all_to_all_single", "error": outs[0]["error"], "child_seconds": wall,
+               "gpu": gpu})
+        return
+    tables = [np.load(path) for path in spec["tables"]]
+    for r, (t, o, codec) in enumerate(zip(tables, outs, ("encode_windows", "encode_dense"))):
+        keys = torch.from_numpy(codes_to_keys(t["codes"], 21))
+        if not torch.all(_owner_of(keys, 4) // 2 == r):
+            raise AssertionError(f"phase 9 two ranks: rank {r} holds another rank's key")
+        if min(o["launches"][n] for n in (codec, "rle_compact", "merge_sorted")) <= 0:
+            raise AssertionError(f"phase 9 two ranks: rank {r} launches {o['launches']}")
+    codes = np.concatenate([t["codes"] for t in tables])
+    counts = np.concatenate([t["counts"] for t in tables])
+    order = np.argsort(codes)
+    exp_codes, exp_counts = _sum_tables((exp3.codes, exp3.counts), (exp_d.codes, exp_d.counts))
+    if not (np.array_equal(codes[order], exp_codes) and np.array_equal(counts[order], exp_counts)):
+        raise AssertionError(f"phase 9 two ranks: union of {codes.shape[0]} entries != the "
+                             f"native tables' {exp_codes.shape[0]}")
+    _emit({"phase": 9, "two_ranks_on_one_card": "gloo, 2 slots of cuda:0 a rank",
+           "files": ["phase 3's file, k = 21", "dirty FASTQ, k = 21, -Q 20"],
+           "distinct": int(exp_codes.shape[0]), "union_equal_to_native": True,
+           "shards_disjoint": True, "child_seconds": wall,
+           "ranks": [{k: o[k] for k in ("seconds", "launches", "mesh_size")}
+                     | {"exchange_s": [e["elapsed_s"] for e in o["exchanges"]],
+                        "wire_bytes": [e["wire_bytes"] for e in o["exchanges"]],
+                        "process_bytes": [e["process_bytes"] for e in o["exchanges"]]}
+                     for o in outs], "gpu": gpu})
 
 
 def _phase9_mesh(gpu, main, main4, dirty, seen) -> dict:
@@ -1774,7 +1966,7 @@ def main() -> int:
         if 8 in phases:
             main = _phase8(rng, gpu, tmp, main)
         if 9 in phases:
-            main4, launches[9] = _phase9(rng, gpu, tmp, main, main4)
+            main4, launches[9], launches["9 group"] = _phase9(rng, gpu, tmp, main, main4)
         if 10 in phases:
             _phase10(rng, gpu, tmp, main, main4)
 
@@ -1786,6 +1978,7 @@ def main() -> int:
                         "launches": launches.get(phase, {}).get(name),
                         "launches_phase": phase,
                         "launches_local_mesh": launches.get(9, {}).get(name),
+                        "launches_group_slots": launches.get("9 group", {}).get(name),
                         "max_abs_err": r.get("max_abs_err"),
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),

@@ -228,10 +228,12 @@ def count_kmers_sharded(
     ``config.device`` alone when it names one): each GPU counts its share
     of the batches in its own table, the tables exchange their entries by a
     hash of the key once per epoch, and the result is the whole exact
-    table. Across hosts, start one process per GPU (``torchrun``) and call
+    table. Across hosts, start one process per host or one per GPU
+    (``torchrun --nproc-per-node``) and call
     :func:`krust_tpu_torch.parallel.mesh.init_distributed` first: every
-    rank then calls this with its own file and gets the exact counts of its
-    own hash range, disjoint from the other ranks'.
+    rank drives its share of its host's GPUs, calls this with its own file
+    and gets the exact counts of its GPUs' hash ranges, disjoint from the
+    other ranks'.
     """
     counts = count_kmers_sharded_result(path, k, fmt, min_quality, mesh, config)
     return counts.to_string_dict()

@@ -143,7 +143,8 @@ class KmerCounter:
 
     def count_sharded(self, path: str | os.PathLike, mesh=None) -> dict[str, int]:
         """Count across the GPUs of a mesh, every local GPU by default: the
-        exact table (in a process group, this rank's hash range of it). See
+        exact table (in a process group, where a rank drives its share of
+        its host's GPUs, its GPUs' hash ranges of it). See
         :func:`krust_tpu_torch.api.count_kmers_sharded`."""
         counts = api.count_kmers_sharded(
             path,

@@ -1,6 +1,6 @@
-"""Multi-GPU counting: one process over every local GPU (or one process per
-GPU, ``torch.distributed``), a table per device and a hash-sharded
-exchange."""
+"""Multi-GPU counting: one process over every local GPU, or the ranks of a
+``torch.distributed`` group each over its share of its host's GPUs; a table
+per device and one hash-sharded exchange."""
 
 from .mesh import Mesh, init_distributed, make_mesh
 from .sharded import EpochShardedTable, ShardedTable, count_sharded

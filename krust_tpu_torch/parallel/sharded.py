@@ -1,45 +1,45 @@
 """Multi-GPU counting: a table per device slot, one hash-sharded exchange per epoch.
 
 Counterpart of ``krust_tpu/parallel/sharded.py``. A mesh
-(:mod:`krust_tpu_torch.parallel.mesh`) is either one process over every
-local GPU, one table slot per device, or one process per GPU in a
-``torch.distributed`` group.
+(:mod:`krust_tpu_torch.parallel.mesh`) is one process over every local GPU,
+or the ranks of a ``torch.distributed`` group that each drive their share
+of their host's GPUs; either way, one table slot per device.
 
 1. **Slot-local encode and tables.** The batch engine's staging and codec
    kernels (K1 on the flat route, K4 on the dense one) feed each slot's
    own count table on the slot's device: the epoch-sort
    :class:`EpochShardedTable` (the default) or the LSM
-   :class:`ShardedTable`. In one process, batches are dealt to the slots
-   in turn. Merges are local; nothing crosses devices while batches
-   stream.
-2. **One hash-sharded exchange per epoch.** Each slot's distinct
-   (key, count) entries are ordered by owner (a multiplicative hash of the
-   key mod the number of slots) and cut at the owners' counts. In one
-   process each destination gathers its pieces with ``Tensor.to`` (a peer
-   copy between cards) and merges them, which are key-sorted already, with
-   the merge kernel (K3) and the RLE kernel (K2); the disjoint shards then
-   merge with K3 into one key-sorted table on the first device, and the
-   process pulls the whole table. In a process group the pieces cross
-   with ``all_to_all_single`` at uneven split sizes and merge with
-   ``ops/count.merge_runs``; every rank pulls its own hash range.
+   :class:`ShardedTable`. A process deals its batches to its slots in
+   turn. Merges are local; nothing crosses devices while batches stream.
+2. **One hash-sharded exchange per epoch** (:func:`_exchange`, one path for
+   every form of mesh). Slot l of rank r is global slot ``r * L + l``; each
+   slot's distinct (key, count) entries are ordered by owner (a
+   multiplicative hash of the key mod the mesh's slots) and cut at the
+   owners' counts. Pieces between a process's slots move by ``Tensor.to``
+   (a peer copy between cards); pieces for other ranks cross with uneven
+   ``all_to_all_single`` calls on the rank's first device, one round per
+   destination slot. Each destination merges its pieces, key-sorted
+   already, with the merge kernel (K3) and the RLE kernel (K2); a rank's
+   disjoint shards then merge with K3 into one key-sorted table on its
+   first device, and the rank pulls it: the whole table in one process,
+   the rank's hash ranges in a group.
 
-An epoch ends before the next step could bring the table's windows to
-``EPOCH_WINDOW_LIMIT``: a step is a batch on every slot of the mesh and
-charges every slot a full batch, slots x ``batch_rows`` x
-``block_windows`` windows. One epoch so holds fewer than
+An epoch ends before the next group of batches could bring the table's
+windows to ``EPOCH_WINDOW_LIMIT``: a batch charges every process a full
+batch, ranks x ``batch_rows`` x ``block_windows`` windows, and a group is
+a batch on every slot of the rank. One epoch so holds fewer than
 ``EPOCH_WINDOW_LIMIT`` windows over all slots, and a key's count, summed
 by the exchange, stays an int32. In a process group what must agree
-across ranks is the sequence of collectives: every rank takes the same
-number of steps (one ``all_reduce(MAX)`` up front; a rank that runs dry
-takes its remaining steps with no batch), so every rank exchanges at the
-same steps.
+across ranks is the sequence of collectives: every rank feeds the same
+number of batches (one ``all_reduce(MAX)`` up front; a rank that runs dry
+charges its remaining batches with none), and every rank has as many
+slots, so every rank exchanges at the same batches.
 
 Differences from ``krust_tpu``: the split sizes are known before the
 pieces move and the receive buffers are sized to them, so no fixed
 per-destination capacity can overflow (no ``CapacityOverflow``, no
 retry); flat-or-dense and the invalid position widths are each rank's own
-(encode is rank-local); a rank of a process group drives one device, and
-its result is its own hash range.
+(encode is rank-local); a slot's batch is ``batch_rows`` rows.
 """
 
 from __future__ import annotations
@@ -53,7 +53,6 @@ from ..io.packer import batch_count
 from ..io.reader import ParsedStreams
 from ..models.engines import BatchEngine, PackedCounts, _ProgressPacer
 from ..ops import table as table_mod
-from ..ops.count import merge_runs
 from ..ops.merge import merge_sorted
 from ..ops.rle import rle_compact
 from ..ops.table import DeviceTable, EpochTable, _no_part, _part, _pull_table
@@ -95,44 +94,6 @@ def _owner_of(keys: torch.Tensor, n: int) -> torch.Tensor:
     return h % n
 
 
-def _exchange_and_merge(part, mesh: Mesh):
-    """Send each entry of this rank's finished part ``(keys, counts, n)`` to
-    its owner, merge what arrives: this rank's hash range as
-    ``(keys, counts, n)`` on its device. A collective: every rank calls it.
-    Without a process group (a mesh of one slot) the part is already final.
-    Given the part's last reference, it frees each buffer once the next
-    step has it: the merge holds what arrived, not what was sent."""
-    keys, cnt, n = part
-    if mesh.group is None:
-        trace_event("shard_sizes", sizes=[n])
-        return part
-    del part
-    with span("sharded_exchange", devices=mesh.size) as fields:
-        keys, cnt = keys[:n], cnt[:n]  # no sentinel among the first n
-        owner, order = torch.sort(_owner_of(keys, mesh.size))
-        keys, cnt = keys[order], cnt[order]
-        del order
-        per_owner = torch.bincount(owner, minlength=mesh.size)
-        del owner
-        # one all-to-all tells each rank what it gets from each rank and
-        # what each rank sends in all
-        meta = torch.stack([per_owner, per_owner.sum().expand(mesh.size)], 1)
-        got = torch.empty_like(meta)
-        dist.all_to_all_single(got, meta, group=mesh.group)
-        got = got.cpu()
-        send, recv = per_owner.tolist(), got[:, 0].tolist()
-        r_keys, r_cnt = keys.new_empty(sum(recv)), cnt.new_empty(sum(recv))
-        dist.all_to_all_single(r_keys, keys, recv, send, group=mesh.group)
-        dist.all_to_all_single(r_cnt, cnt, recv, send, group=mesh.group)
-        del keys, cnt
-        fields["wire_bytes"] = int(got[:, 1].sum()) * (r_keys.element_size()
-                                                       + r_cnt.element_size())
-        m_keys, m_cnt, n_dev = merge_runs(r_keys, r_cnt)
-        n = int(n_dev.item())
-    trace_event("shard_sizes", sizes=[n])
-    return m_keys, m_cnt, n
-
-
 def _by_owner(part, n: int):
     """A slot's finished part ``(keys, counts, m)`` ordered by owner slot,
     key order kept within each owner (a stable sort of the owners), and
@@ -166,31 +127,89 @@ def _merge_sorted_all(pieces: list, device):
     return keys.to(device), cnt.to(device)
 
 
-def _exchange_local(parts, devices, k: int):
-    """The in-process exchange of one process's slots: each slot's finished
-    part ``(keys, counts, n)`` is cut by owner, and slot d's pieces from
-    every slot merge on ``devices[d]`` (K3, then K2 to sum the keys that
-    several slots saw). Returns each slot's hash range as ``(keys, counts,
-    n)``, disjoint and key-sorted. Empties ``parts``: each part dies
+def _cross(pieces, send, recv, slot: int, mesh: Mesh):
+    """Round ``slot`` of the exchange between ranks, a collective: the
+    pieces of this rank's slots bound for slot ``slot`` of every other
+    rank cross in two uneven ``all_to_all_single`` calls (keys, then
+    counts) on the first device, the one device of the process's
+    collectives. Returns what this rank's slot ``slot`` gets from every
+    slot of every other rank: key-sorted ``(keys, counts)`` pieces on the
+    first device. ``send[s][g]`` is what local slot s sends global slot g,
+    ``recv[r][s][l]`` what slot s of rank r sends local slot l."""
+    n_local, first = len(mesh.devices), mesh.device
+    out = [[0 if r == mesh.rank else send[s][r * n_local + slot] for s in range(n_local)]
+           for r in range(mesh.world)]
+    into = [[0 if r == mesh.rank else recv[r][s][slot] for s in range(n_local)]
+            for r in range(mesh.world)]
+    got = []
+    for part in (0, 1):  # keys, then counts: one payload on the card at a time
+        buf = pieces[0][part][0].new_empty(sum(map(sum, out)), device=first)
+        at = 0
+        for r, row in enumerate(out):
+            for s, n in enumerate(row):
+                if n:  # a peer copy, ordered on the first device's current stream
+                    buf[at : at + n].copy_(pieces[s][part][r * n_local + slot])
+                    at += n
+        arrived = buf.new_empty(sum(map(sum, into)))
+        dist.all_to_all_single(arrived, buf, list(map(sum, into)), list(map(sum, out)),
+                               group=mesh.group)
+        del buf
+        got.append(arrived.split([n for row in into for n in row]))
+    return list(zip(*got))
+
+
+def _exchange(parts, mesh: Mesh, k: int):
+    """The hash-sharded exchange of one rank's slots, the same in every
+    form of mesh: slot l of rank r is global slot ``r * L + l`` (L slots a
+    rank), and each entry goes to the global slot its key hashes to. Each
+    slot's finished part ``(keys, counts, n)`` is cut by owner; the split
+    sizes reach the host in one sync (after one ``all_to_all_single`` of
+    the size matrix in a process group); pieces between this rank's slots
+    move by peer copy, pieces for other ranks cross in one round per
+    destination slot (:func:`_cross`); each of this rank's slots merges its
+    key-sorted pieces with K3, then K2 sums the keys that several slots
+    saw. Returns this rank's slots' hash ranges as ``(keys, counts, n)``,
+    disjoint and key-sorted, each on its slot's device. A collective in a
+    process group: every rank calls it at the same step. Without one, a
+    mesh of one slot exchanges nothing. Empties ``parts``: each part dies
     once it is cut."""
-    n_slots = len(devices)
-    with span("sharded_exchange", devices=n_slots) as fields:
+    devices, n_local, rank = mesh.devices, len(mesh.devices), mesh.rank
+    if mesh.group is None and n_local == 1:  # the part is already final
+        trace_event("shard_sizes", sizes=[parts[0][2]])
+        return [parts.pop()]
+    with span("sharded_exchange", devices=mesh.size) as fields:
         cut = []
         while parts:  # each part dies once its ordered copy exists
-            cut.append(_by_owner(parts.pop(0), n_slots))
-        # every slot's split sizes, read in one host sync
-        sizes = torch.stack([c[2].to(devices[0]) for c in cut]).tolist()
+            cut.append(_by_owner(parts.pop(0), mesh.size))
+        sizes = torch.stack([c[2].to(mesh.device) for c in cut])  # [L, world * L]
+        if mesh.group is not None:  # [world, L, L]: what each rank's slots send ours
+            got = torch.empty(mesh.world, n_local, n_local, dtype=sizes.dtype,
+                              device=mesh.device)
+            dist.all_to_all_single(
+                got, sizes.view(n_local, mesh.world, n_local).transpose(0, 1).contiguous(),
+                group=mesh.group)
+            sizes = torch.cat([sizes.flatten(), got.flatten()])
+        flat = sizes.flatten().tolist()  # the one host sync
+        send = [flat[s * mesh.size : (s + 1) * mesh.size] for s in range(n_local)]
+        at = n_local * mesh.size
+        recv = [[flat[at + (r * n_local + s) * n_local : at + (r * n_local + s + 1) * n_local]
+                 for s in range(n_local)] for r in range(mesh.world)]
         entry = cut[0][0].element_size() + cut[0][1].element_size()
         pieces = [(keys.split(row), cnt.split(row))
-                  for (keys, cnt, _), row in zip(cut, sizes)]
+                  for (keys, cnt, _), row in zip(cut, send)]
         del cut
-        fields["sent_bytes"] = sum(map(sum, sizes)) * entry
-        fields["wire_bytes"] = entry * sum(
-            sizes[s][d] for s in range(n_slots) for d in range(n_slots)
-            if devices[s] != devices[d])
+        remote = [n for row in send for g, n in enumerate(row) if g // n_local != rank]
+        local = [row[rank * n_local + d] for s, row in enumerate(send)
+                 for d in range(n_local) if devices[s] != devices[d]]
+        fields["sent_bytes"] = entry * sum(map(sum, send))
+        fields["process_bytes"] = entry * sum(remote)
+        fields["wire_bytes"] = entry * (sum(remote) + sum(local))
         shards = []
         for d, dev in enumerate(devices):
-            mine = [(keys[d], cnt[d]) for keys, cnt in pieces]
+            g = rank * n_local + d
+            mine = [(keys[g], cnt[g]) for keys, cnt in pieces]
+            if mesh.world > 1:
+                mine += _cross(pieces, send, recv, d, mesh)
             merged = _merge_sorted_all(mine, dev)
             if merged is None:
                 shards.append(_no_part(k, dev))
@@ -206,7 +225,10 @@ def _exchange_local(parts, devices, k: int):
 def _gather(shards, device, k: int):
     """The slots' shards, disjoint hash ranges each key-sorted, as one
     key-sorted table ``(keys, counts, n)`` on ``device`` (K3 merges; no
-    key repeats, so no K2). Empties ``shards``."""
+    key repeats, so no K2); one shard is the table as it is. Empties
+    ``shards``."""
+    if len(shards) == 1:
+        return shards.pop()
     n = sum(s[2] for s in shards)
     with span("gather_shards", entries=n):
         views = [(keys[:m], cnt[:m]) for keys, cnt, m in shards]
@@ -218,15 +240,19 @@ def _gather(shards, device, k: int):
 
 
 class _Exchanged:
-    """A rank's table whose finished part is exchanged before the pull."""
+    """A slot's table whose finished part is exchanged before the pull."""
 
     _mesh: Mesh
 
     def exchange(self):
-        """Finish this rank's table and exchange it: this rank's owned
-        ``(keys, counts, n)`` on its device. A collective: every rank
-        calls it at the same step. The table is empty afterwards."""
-        return _exchange_and_merge(self._finish(), self._mesh)
+        """Finish this table and exchange it, on a mesh of one slot a rank:
+        this rank's owned ``(keys, counts, n)`` on its device. A collective:
+        every rank calls it at the same step. The table is empty
+        afterwards. Several slots a rank exchange together, through
+        :class:`_Slots`."""
+        if len(self._mesh.devices) != 1:
+            raise ValueError("a table exchanges alone only on a mesh of one slot a rank")
+        return _exchange([self._finish()], self._mesh, self._k)[0]
 
     def finalize(self):
         """:meth:`exchange`, then copy this rank's hash range to the host:
@@ -260,12 +286,13 @@ class EpochShardedTable(_Exchanged, EpochTable):
 class _Slots:
     """The tables of this process's slots, fed as one table: the feed
     stages batch i on ``devices[i % n]`` and :meth:`add` hands it to slot
-    i mod n. :meth:`finalize` ends an epoch: with one slot, the slot's own
-    (the rank's exchange in a process group); with several, the in-process
-    exchange, the gather of the shards on the first device and one pull."""
+    i mod n. :meth:`finalize` ends an epoch: the exchange
+    (:func:`_exchange`), the gather of this rank's shards on its first
+    device and one pull."""
 
     def __init__(self, k: int, mesh: Mesh, table_cls):
         self._k = k
+        self._mesh = mesh
         self.devices = mesh.devices
         self._tables = [table_cls(k, mesh, slot=i) for i in range(len(mesh.devices))]
         self._next = 0
@@ -282,14 +309,12 @@ class _Slots:
         self.windows_this_epoch += rest[-1]
 
     def finalize(self):
-        """End the epoch: the whole table of this process's hash ranges on
-        the host, (codes u64, counts u64) sorted by code. The slots are
-        empty afterwards."""
+        """End the epoch, a collective in a process group: this rank's hash
+        ranges on the host, (codes u64, counts u64) sorted by code. The
+        slots are empty afterwards."""
         self._next = 0
         self.windows_this_epoch = 0
-        if len(self._tables) == 1:  # a mesh of one device: no exchange in process
-            return self._tables[0].finalize()
-        shards = _exchange_local([t._finish() for t in self._tables], self.devices, self._k)
+        shards = _exchange([t._finish() for t in self._tables], self._mesh, self._k)
         return _pull_table(*_gather(shards, self.devices[0], self._k), self._k)
 
 
@@ -315,10 +340,11 @@ def count_sharded(
 
     Without a process group, one call counts the input over every slot of
     the mesh and returns the whole table. In a process group every rank
-    calls it with its own input and gets the table of its own hash range:
-    disjoint from every other rank's, their union the count of all ranks'
-    input. Without a mesh: every visible GPU, or ``config.device`` alone
-    when it names one (no CPU fallback).
+    calls it with its own input, counts it over its own slots and gets the
+    table of its slots' hash ranges: disjoint from every other rank's,
+    their union the count of all ranks' input. Without a mesh: every
+    visible GPU (in a group, the rank's share of its host's GPUs), or
+    ``config.device`` alone when it names one (no CPU fallback).
     """
     cfg = config or EngineConfig()
     mesh = mesh or make_mesh(device=cfg.device)
@@ -326,9 +352,10 @@ def count_sharded(
     table = _Slots(k, mesh, EpochShardedTable if cfg.use_epoch_sort else ShardedTable)
     n_bases = streams.codes.shape[0]
     steps = _all_max(mesh, batch_count(n_bases, k, cfg.block_windows, cfg.batch_rows))
-    # a batch charges a full batch on every process: a step, a batch on
-    # every slot, charges every slot of the mesh one
-    charge = mesh.size // len(mesh.devices) * cfg.batch_rows * cfg.block_windows
+    # a batch charges a full batch on every process: a group of a batch on
+    # every slot of the rank charges every slot of the mesh one
+    charge = mesh.world * cfg.batch_rows * cfg.block_windows
+    n_local = len(mesh.devices)
     pacer = _ProgressPacer(
         tracker, progress, streams.n_records, streams.n_bases, max(n_bases - k + 1, 0)
     )
@@ -337,8 +364,9 @@ def count_sharded(
         streams, k, min_quality, table, epochs, pacer.step, charge, "sharded_encode",
         mesh.devices,
     )
-    for _ in range(steps - fed):  # ran dry: keep the other ranks' exchange steps
-        if table.windows_this_epoch + charge >= table_mod.EPOCH_WINDOW_LIMIT:
+    for i in range(fed, steps):  # ran dry: the feed's exchange steps, batch by batch
+        if i % n_local == 0 and (table.windows_this_epoch + n_local * charge
+                                 >= table_mod.EPOCH_WINDOW_LIMIT):
             epochs.append(table.finalize())
         table.windows_this_epoch += charge
     pacer.finish()

@@ -531,10 +531,13 @@ def test_local_mesh_on_cuda_matches_native(dev, monkeypatch, k, dirty, cards):
     assert torch.cuda.current_device() == current
 
 
+@pytest.mark.parametrize("slots", [1, 4])
 @pytest.mark.parametrize("k", [5, 21])
-def test_sharded_exchange_in_a_one_rank_nccl_group(dev, tmp_path, k):
-    """With a process group the exchange runs on the card: owner order, the
-    split sizes and both payloads through NCCL, then ``merge_runs``."""
+def test_sharded_exchange_in_a_one_rank_nccl_group(dev, tmp_path, k, slots):
+    """With a process group the exchange runs on the card: owner order and
+    the split sizes through NCCL, then K3 and K2 per slot; one slot sends
+    each entry once, 4 slots of the one card as many, none across
+    processes."""
     spans = []
 
     def collect(kind, name, fields):
@@ -544,15 +547,23 @@ def test_sharded_exchange_in_a_one_rank_nccl_group(dev, tmp_path, k):
     s = _sharded_stream(k, False)
     init_distributed(f"file://{tmp_path / 'pg'}", rank=0, world_size=1)
     tracing.add_collector(collect)
+    before = merge_sorted.launches
     try:
-        got = count_sharded(s, k, config=EngineConfig(block_windows=256, batch_rows=8))
+        mesh = make_mesh(devices=[dev] * slots)
+        got = count_sharded(s, k, mesh=mesh,
+                            config=EngineConfig(block_windows=256, batch_rows=8))
     finally:
         tracing.remove_collector(collect)
         torch.distributed.destroy_process_group()
     exp = NativeEngine().count(s, k)
     np.testing.assert_array_equal(got.codes, exp.codes)
     np.testing.assert_array_equal(got.counts, exp.counts)
-    assert [x["wire_bytes"] for x in spans] == [got.distinct * (8 if k <= 16 else 12)]
+    assert (mesh.size, [x["devices"] for x in spans]) == (slots, [slots])
+    assert [x["process_bytes"] + x["wire_bytes"] for x in spans] == [0]
+    if slots == 1:
+        assert [x["sent_bytes"] for x in spans] == [got.distinct * (8 if k <= 16 else 12)]
+    else:
+        assert merge_sorted.launches > before
 
 
 # --- the public surface on the card: chunked ingest, stdin CLI, .kmix ----------

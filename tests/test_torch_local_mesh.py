@@ -312,19 +312,110 @@ def test_make_mesh_with_no_gpu_needs_a_device(monkeypatch):
 
 
 def test_make_mesh_in_a_process_group(tmp_path):
-    """A rank drives one device: several per rank raise."""
+    """A rank drives several slots: a device list, or n slots over the
+    world's ranks on one named device."""
     init_distributed(f"file://{tmp_path / 'pg'}", rank=0, world_size=1, backend="gloo")
     try:
         mesh = make_mesh(device="cpu")
         assert (mesh.group, mesh.size, mesh.devices) == (
             torch.distributed.group.WORLD, 1, (torch.device("cpu"),))
         assert make_mesh(1, devices=["cpu"]) == mesh
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_mesh(devices=["cpu", "cpu"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_mesh(2, device="cpu")
+        two = make_mesh(devices=["cpu"] * 2)
+        assert (two.group, two.size, two.world, two.devices) == (
+            torch.distributed.group.WORLD, 2, 1, (torch.device("cpu"),) * 2)
+        assert make_mesh(2, device="cpu") == two
+        assert make_mesh(2, devices=["cpu"] * 3) == two
+        with pytest.raises(ValueError, match="rank 0: requested 4 devices, only 3"):
+            make_mesh(4, devices=["cpu"] * 3)
     finally:
         torch.distributed.destroy_process_group()
+
+
+@pytest.fixture
+def gloo_one_rank(tmp_path):
+    init_distributed(f"file://{tmp_path / 'pg'}", rank=0, world_size=1, backend="gloo")
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("host_ranks", [1, 2, 4, 8])
+def test_default_split_shares_the_host_gpus(monkeypatch, gloo_one_rank, host_ranks):
+    """8 GPUs over the host's ranks (torchrun's ``LOCAL_WORLD_SIZE``): each
+    local rank i drives its own g = 8 / ranks cards, ``cuda:i*g`` on."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(host_ranks))
+    g = 8 // host_ranks
+    driven = []
+    for i in range(host_ranks):
+        monkeypatch.setenv("LOCAL_RANK", str(i))
+        mesh = make_mesh()
+        assert mesh.devices == tuple(torch.device("cuda", i * g + j) for j in range(g))
+        assert (mesh.size, mesh.world, mesh.device) == (g, 1, torch.device("cuda", i * g))
+        assert make_mesh(1).devices == mesh.devices[:1]
+        driven += mesh.devices
+    assert sorted(d.index for d in driven) == list(range(8))  # no card twice
+
+
+def test_default_split_counts_the_host_ranks_by_name(monkeypatch, gloo_one_rank):
+    """Without ``LOCAL_WORLD_SIZE`` the host's ranks are those that share
+    its name: here the one rank, so every GPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    assert make_mesh().devices == tuple(torch.device("cuda", i) for i in range(4))
+
+
+def test_an_uneven_split_raises(monkeypatch, gloo_one_rank):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 6)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with pytest.raises(ValueError, match="6 GPUs do not split evenly over the host's 4 ranks"):
+        make_mesh()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)  # fewer cards than ranks
+    with pytest.raises(ValueError, match="2 GPUs do not split evenly"):
+        make_mesh()
+
+
+@pytest.mark.parametrize("host_ranks,local_rank,first", [(1, 0, 0), (2, 1, 4), (4, 3, 6),
+                                                          (8, 5, 5)])
+def test_init_distributed_selects_the_first_device(monkeypatch, host_ranks, local_rank, first):
+    """With NCCL, the rank's first device of the split, ``cuda:i*g``."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(d))
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: calls.append(backend))
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(host_ranks))
+    monkeypatch.setenv("LOCAL_RANK", str(local_rank))
+    init_distributed("localhost:1234")
+    assert calls == ["nccl", torch.device("cuda", first)]
+
+
+def test_init_distributed_counts_host_ranks_without_torchrun(monkeypatch, tmp_path):
+    """Without ``LOCAL_WORLD_SIZE`` the group also takes gloo, for the
+    gather of host names before the first device is selected."""
+    calls = []
+    real_init = torch.distributed.init_process_group
+
+    def init(backend, **kw):  # CPU torch has no NCCL: record it, join on gloo
+        calls.append(backend)
+        real_init("gloo", **kw)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(d))
+    monkeypatch.setattr(torch.distributed, "init_process_group", init)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    try:
+        init_distributed(f"file://{tmp_path / 'pg'}", rank=0, world_size=1)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert calls == ["cpu:gloo,cuda:nccl", torch.device("cuda", 0)]
 
 
 # --- the public surface on a mesh -------------------------------------------------

@@ -211,16 +211,18 @@ def test_multibatch_sharded(trace):
 
 @pytest.mark.parametrize("k", [5, 21])
 def test_exchange_in_a_one_rank_group(gloo_world_of_one, trace, k):
-    """With a process group the exchange runs its collectives even for one
-    rank: owner order, the split sizes, keys and counts, then
-    ``merge_runs``. Every entry is on the wire once: key bytes + 4."""
+    """With a process group the exchange runs even for one rank: owner
+    order, the split sizes through ``all_to_all_single``, then K3 and K2.
+    Every entry is sent once (key bytes + 4), and none leaves the rank's
+    one device."""
     rng = random.Random(5 + k)
     seqs = [oracle.random_dna(rng, rng.randint(0, 400), "ACGTN") for _ in range(40)]
     got = count_sharded(streams_from_sequences(seqs), k, config=_cfg())
     assert _to_dict(got) == oracle.count_sequences(seqs, k)
     (ex,) = trace["sharded_exchange"]
     assert ex["devices"] == 1
-    assert ex["wire_bytes"] == got.distinct * (4 if k <= 16 else 8) + 4 * got.distinct
+    assert ex["sent_bytes"] == got.distinct * (4 if k <= 16 else 8) + 4 * got.distinct
+    assert ex["wire_bytes"] == ex["process_bytes"] == 0
     assert trace["shard_sizes"] == [{"sizes": [got.distinct]}]
 
 
@@ -274,6 +276,7 @@ def test_make_mesh_and_init_distributed(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setenv("LOCAL_RANK", "3")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
     # no process group: every visible GPU, whatever LOCAL_RANK says
     every = make_mesh()
     assert every.devices == tuple(torch.device("cuda", i) for i in range(4))
@@ -284,8 +287,8 @@ def test_make_mesh_and_init_distributed(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(d))
     init_distributed("localhost:1234", rank=1, world_size=2)
     init_distributed(f"file://{tmp_path}/pg", backend="gloo")
-    assert calls == [3, (("nccl",), {"init_method": "tcp://localhost:1234", "rank": 1,
-                                     "world_size": 2}),
+    assert calls == [(("nccl",), {"init_method": "tcp://localhost:1234", "rank": 1,
+                                  "world_size": 2}), torch.device("cuda", 3),
                      (("gloo",), {"init_method": f"file://{tmp_path}/pg"})]
 
 
@@ -392,9 +395,12 @@ for _c in MP_CASES:
     _c.setdefault("max_len", 300)
 
 
-def _spawn(tmp_path, world, cases):
-    """Run ``cases`` on ``world`` gloo ranks; {case name: [(codes, counts)
-    of each rank]}."""
+def _spawn(tmp_path, world, cases, slots=None):
+    """Run ``cases`` on ``world`` gloo ranks, each of ``slots`` CPU slots
+    when given; {case name: [(codes, counts, flat calls, dense calls[,
+    exchanges]) of each rank]}. A case's window limit is in batches of
+    every rank, whatever its slots, so that with several slots the feed's
+    exchange steps (a group of batches) and the charge part."""
     env = dict(os.environ, PYTHONPATH=os.path.dirname(HERE))
     env.pop("KRUST_ENGINE", None)
     worker = os.path.join(HERE, "torch_mp_worker.py")
@@ -403,7 +409,7 @@ def _spawn(tmp_path, world, cases):
              if c.get("window_limit") else c for c in cases]
     procs = [subprocess.Popen(
         [sys.executable, worker, str(r), str(world), str(init), str(tmp_path),
-         json.dumps(cases)],
+         json.dumps(cases)] + ([str(slots)] if slots else []),
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(world)]
     outs = []
     for p in procs:
@@ -422,7 +428,8 @@ def _spawn(tmp_path, world, cases):
         shards[c["name"]] = []
         for r in range(world):
             z = np.load(tmp_path / f"{c['name']}_{r}.npz")
-            shards[c["name"]].append((z["codes"], z["counts"], int(z["flat"]), int(z["dense"])))
+            shards[c["name"]].append((z["codes"], z["counts"], int(z["flat"]), int(z["dense"]))
+                                     + ((str(z["exchanges"]),) if slots else ()))
     return shards
 
 
