@@ -16,7 +16,12 @@ Phases, printing JSON lines:
    work (``bound_ms``) and, where one PyTorch call computes the same
    function, that call's time (``library_ms``; never called by the port).
    K1 also runs with no invalid position, K2 on one run over every
-   tile, and K4 at narrower rows (256 and 8 windows, equality only). The
+   tile, and K4 at narrower rows (256 and 8 windows, equality only).
+   ``ops.codec.encode_blocks`` (krust_tpu's public codec: rows packed on
+   the card, K4, the keys split into hi, lo and valid) runs at K4's main
+   shape with quality at k = 16, 21 and 32, each call first as a path of
+   its own (counts zeroed, read after: K4 once), then against its plain
+   version, with its time and K4's own. The
    LSM table's ``merge_runs`` (``torch.sort`` plus K2 weighted) runs at a
    compaction's size, 8 x 33.5M raw keys plus a 2^26-entry table, against
    its CPU result. K3 runs on two random parts of 2^24 entries and on two parts
@@ -113,9 +118,10 @@ Phases, printing JSON lines:
    cross an epoch flush, so K1, K2 and K3 must launch.
 
 The second-to-last line is the kernel table (launches from each kernel's
-phase, from phase 9's mesh count of phase 4's file and from its 4-slot
-counts in the NCCL group, times from phase 2), the last line the result. Any failed check raises: the script exits
-non-zero and prints no result.
+phase plus those of phase 2's ``encode_blocks`` path, from phase 9's mesh
+count of phase 4's file and from its 4-slot counts in the NCCL group,
+times from phase 2), the last line the result. Any failed check raises:
+the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -465,6 +471,61 @@ def _check_dense(rng, gpu, dev, results):
     )
 
 
+def _check_encode_blocks(rng, gpu, dev, results):
+    """``ops.codec.encode_blocks``, krust_tpu's public codec, on the card at
+    K4's main shape: 8192 rows x 4096 windows, 7% bad bases, quality bytes
+    5% below the threshold 53 (Q20). For each k in 16, 21, 32 the path
+    runs first: the counts zeroed, one ``encode_blocks`` call, the counts
+    read (K4 once, no other kernel). Then its output against its plain
+    version on the same rows (tolerance 0), its time (pack, K4 and split)
+    and K4's own on the packed rows, each beside its bound."""
+    import torch
+
+    from krust_tpu_torch.kmer import INVALID_CODE
+    from krust_tpu_torch.ops import codec
+
+    rows, w, thr = 8192, 4096, ord("5")
+    launches = {}
+    for k in (16, 21, 32):
+        shape = (rows, w + k - 1)
+        codes = rng.integers(0, 4, size=shape, dtype=np.uint8)
+        codes[rng.random(shape) < 0.07] = INVALID_CODE
+        qual = np.where(rng.random(shape) < 0.05, ord("#"), ord("I")).astype(np.uint8)
+        c, q = torch.from_numpy(codes).to(dev), torch.from_numpy(qual).to(dev)
+        del codes, qual
+        _zero_launches()
+        got = codec.encode_blocks(c, k, q, thr)
+        torch.cuda.synchronize()
+        path = _launches()
+        if path["encode_dense"] != 1 or sum(path.values()) != 1:
+            raise AssertionError(f"encode_blocks k={k}: launches {path}")
+        for name, n in path.items():
+            launches[name] = launches.get(name, 0) + n
+        exp = codec.encode_blocks_plain(c, k, q, thr)
+        wide = [(a.to(torch.int64), b.to(torch.int64)) for a, b in zip(got, exp)]
+        err = _max_abs_err(wide)  # int64 views: CUDA torch has no uint32 arithmetic
+        if err or not all(torch.equal(a, b) for a, b in wide):
+            raise AssertionError(f"encode_blocks k={k}: K4 route != plain")
+        valid_share = got[2].float().mean().item()
+        del got, exp, wide
+        ms = _time_ms(lambda: codec.encode_blocks(c, k, q, thr))
+        plain_ms = _time_ms(lambda: codec.encode_blocks_plain(c, k, q, thr), 2)
+        packed2, badbits, w4 = codec.pack_rows(c, k, q, thr)
+        k4_ms = _time_ms(lambda: codec.encode_dense(packed2, badbits, k, w4))
+        key_bytes = 4 if k <= 16 else 8
+        # codes and quality read once; hi, lo (uint32) and valid (bool) written once
+        bound = _bound(2 * c.numel() + 9 * rows * w, _codec_ops(rows * w, k))
+        k4_bound = _bound(packed2.numel() + badbits.numel() + key_bytes * rows * w4,
+                          _codec_ops(rows * w4, k))
+        _emit({"phase": 2, "kernel": "encode_blocks", "k": k, "rows": rows, "windows": w,
+               "bad_share": 0.07, "quality_threshold": thr, "low_quality_share": 0.05,
+               "valid_share": valid_share, "launches": path, "equal": True, "ms": ms,
+               "plain_ms": plain_ms, "max_abs_err": err, "library_ms": None, **bound,
+               "k4_ms": k4_ms, "k4_bound_ms": k4_bound["bound_ms"], "gpu": gpu})
+        del c, q, packed2, badbits
+    results["encode_blocks_launches"] = launches
+
+
 def _check_merge_keys(rng, gpu, dev, results):
     """K5 at 2 x 16.8M uint32 keys: half at or above 2^31, ties, sentinel
     tails. Its timing launches are its launches in the kernel line: no
@@ -639,7 +700,7 @@ def _derive_limits(gpu, dev, fits) -> None:
     f64, f32 = fits["epoch_flush", "torch.int64"], fits["epoch_flush", "torch.int32"]
     merge, runs = fits["part_merge", "torch.int64"], fits["merge_runs", "torch.int64"]
     epoch = table_mod.epoch_entry_limit(dev)
-    pending = table_mod.DeviceTable(21, dev)._pending_limit
+    pending = table_mod.DeviceTable(21, device=dev)._pending_limit
     row = {
         "device_total_bytes": total, "reserve": table_mod.MEM_RESERVE, "budget_bytes": budget,
         "epoch_entry_limit": epoch,
@@ -1943,6 +2004,7 @@ def main() -> int:
         _check_rle(g, gpu, dev, results)
         _check_merge(g, gpu, dev, results)
         _check_dense(rng, gpu, dev, results)
+        _check_encode_blocks(rng, gpu, dev, results)
         _check_merge_keys(rng, gpu, dev, results)
         torch.cuda.empty_cache()
         merge_runs_points = _check_merge_runs(g, gpu, dev)
@@ -1971,12 +2033,15 @@ def main() -> int:
             _phase10(rng, gpu, tmp, main, main4)
 
     kernels = []
+    by_blocks = results.get("encode_blocks_launches", {})
     for name, (source, replaces, phase, redesigned) in _REPLACES.items():
         r = results.get(name, {})
+        n = [v for v in (launches.get(phase, {}).get(name), by_blocks.get(name)) if v is not None]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "redesigned": redesigned,
-                        "launches": launches.get(phase, {}).get(name),
+                        "launches": sum(n) if n else None,
                         "launches_phase": phase,
+                        "launches_encode_blocks": by_blocks.get(name),
                         "launches_local_mesh": launches.get(9, {}).get(name),
                         "launches_group_slots": launches.get("9 group", {}).get(name),
                         "max_abs_err": r.get("max_abs_err"),

@@ -437,7 +437,7 @@ class BatchEngine:
         from ..ops.table import DeviceTable, EpochTable
 
         table = EpochTable if self.config.use_epoch_sort else DeviceTable
-        return table(k, self.device)
+        return table(k, device=self.device)
 
     def _feed_streams(
         self, streams, k, min_quality, table, epochs, on_windows, charge=None,

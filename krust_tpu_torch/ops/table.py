@@ -43,6 +43,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils.config import default_device
 from ..utils.numutil import round_pow2 as _round_pow2
 from ..utils.tracing import span, trace_event
 from .count import merge_runs
@@ -140,12 +141,18 @@ def _scaled_limit(env: str, tuned: int, device: torch.device) -> int:
     return max(int(tuned * (mem / _REFERENCE_MEM)), 1 << 20)
 
 
-def epoch_entry_limit(device: torch.device) -> int:
-    """Raw-entry epoch budget for ``device`` (KRUST_EPOCH_ENTRIES > scaled).
+def _table_device(device) -> torch.device:
+    """A table's device: ``device``, or :func:`default_device` for None."""
+    return default_device() if device is None else torch.device(device)
+
+
+def epoch_entry_limit(device: torch.device | str | None = None) -> int:
+    """Raw-entry epoch budget for ``device`` (None: the default device;
+    KRUST_EPOCH_ENTRIES > scaled).
 
     Reads the module attribute, so tests patching ``EPOCH_ENTRY_LIMIT``
     steer it."""
-    return _scaled_limit("KRUST_EPOCH_ENTRIES", EPOCH_ENTRY_LIMIT, device)
+    return _scaled_limit("KRUST_EPOCH_ENTRIES", EPOCH_ENTRY_LIMIT, _table_device(device))
 
 
 def _epoch_concat_sort_rle(parts: list[torch.Tensor]):
@@ -195,7 +202,10 @@ def _no_part(k: int, device: torch.device):
 
 
 class DeviceTable:
-    """LSM accumulator of weighted (key, count) parts on one device."""
+    """LSM accumulator of weighted (key, count) parts on one device:
+    ``device``, keyword-only, or :func:`default_device` (the first CUDA
+    device when one is visible), so a call written for ``krust_tpu``,
+    ``DeviceTable(k, max_parts)``, counts on the card."""
 
     #: merge-input entries (pending parts + compacted table) that force a
     #: compaction, at _REFERENCE_MEM: the largest input whose ``merge_runs``
@@ -205,9 +215,10 @@ class DeviceTable:
         MERGE_RUNS_FIXED_BYTES, MERGE_RUNS_BYTES_PER_ENTRY, _REFERENCE_MEM
     )
 
-    def __init__(self, k: int, device: torch.device, max_parts: int = 8):
+    def __init__(self, k: int = 32, max_parts: int = 8, *,
+                 device: torch.device | str | None = None):
         self._k = k
-        self._device = torch.device(device)
+        self._device = _table_device(device)
         self._max_parts = max_parts
         self._pending_limit = _scaled_limit(
             "KRUST_PENDING_ENTRIES", type(self).PENDING_ENTRY_LIMIT, self._device
@@ -292,7 +303,9 @@ class DeviceTable:
 
 
 class EpochTable:
-    """Epoch-sort accumulator of raw window keys on one device.
+    """Epoch-sort accumulator of raw window keys on one device (``device``,
+    keyword-only, as :class:`DeviceTable`'s). ``krust_tpu``'s ``interpret``
+    is not taken: there is no interpret mode to ask for.
 
     Adaptive epoch sizing (from the TPU engine): after the first epoch
     resolves, its measured distinct count retunes the limit to
@@ -312,9 +325,10 @@ class EpochTable:
     #: windows), so an epoch never holds less than a batch's keys
     ADAPT_MIN = 1 << 25
 
-    def __init__(self, k: int, device: torch.device, max_parts: int = 8):
+    def __init__(self, k: int = 32, max_parts: int = 8, *,
+                 device: torch.device | str | None = None):
         self._k = k
-        self._device = torch.device(device)
+        self._device = _table_device(device)
         self._max_parts = max_parts
         self._epoch_limit = epoch_entry_limit(self._device)
         self._adaptive = not os.environ.get("KRUST_EPOCH_ENTRIES")

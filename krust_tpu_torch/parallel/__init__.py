@@ -3,9 +3,10 @@
 per device and one hash-sharded exchange."""
 
 from .mesh import Mesh, init_distributed, make_mesh
-from .sharded import EpochShardedTable, ShardedTable, count_sharded
+from .sharded import CapacityOverflow, EpochShardedTable, ShardedTable, count_sharded
 
 __all__ = [
+    "CapacityOverflow",
     "EpochShardedTable",
     "Mesh",
     "ShardedTable",

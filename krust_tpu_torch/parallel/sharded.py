@@ -37,8 +37,9 @@ slots, so every rank exchanges at the same batches.
 
 Differences from ``krust_tpu``: the split sizes are known before the
 pieces move and the receive buffers are sized to them, so no fixed
-per-destination capacity can overflow (no ``CapacityOverflow``, no
-retry); flat-or-dense and the invalid position widths are each rank's own
+per-destination capacity can overflow (``CapacityOverflow`` is never
+raised, ``capacity_factor`` is checked and unused, no retry);
+flat-or-dense and the invalid position widths are each rank's own
 (encode is rank-local); a slot's batch is ``batch_rows`` rows.
 """
 
@@ -239,17 +240,29 @@ def _gather(shards, device, k: int):
     return merged[0], merged[1], n
 
 
+class CapacityOverflow(RuntimeError):
+    """``krust_tpu``'s exchange error: a hash shard's destination outgrew its
+    fixed capacity. The port never raises it: its exchange learns the split
+    sizes before the pieces move and sizes every buffer to them, so there
+    is no fixed capacity to exceed. Exported so that code written against
+    ``krust_tpu`` (``except CapacityOverflow``) imports unchanged."""
+
+
 class _Exchanged:
     """A slot's table whose finished part is exchanged before the pull."""
 
     _mesh: Mesh
 
-    def exchange(self):
+    def exchange(self, capacity_factor: int = 4):
         """Finish this table and exchange it, on a mesh of one slot a rank:
         this rank's owned ``(keys, counts, n)`` on its device. A collective:
         every rank calls it at the same step. The table is empty
         afterwards. Several slots a rank exchange together, through
-        :class:`_Slots`."""
+        :class:`_Slots`. ``capacity_factor`` is ``krust_tpu``'s first rung
+        of capacity (at least 1, as there); the port sizes its buffers to
+        the split sizes, so it is otherwise unused."""
+        if capacity_factor < 1:
+            raise ValueError(f"capacity_factor={capacity_factor}: at least 1")
         if len(self._mesh.devices) != 1:
             raise ValueError("a table exchanges alone only on a mesh of one slot a rank")
         return _exchange([self._finish()], self._mesh, self._k)[0]
@@ -267,7 +280,7 @@ class ShardedTable(_Exchanged, DeviceTable):
     epoch is."""
 
     def __init__(self, k: int, mesh: Mesh, max_parts: int = 8, slot: int = 0):
-        super().__init__(k, mesh.devices[slot], max_parts)
+        super().__init__(k, max_parts, device=mesh.devices[slot])
         self._mesh = mesh
         self._pending_limit = max(self._pending_limit // mesh.size, MIN_SLOT_ENTRIES)
 
@@ -278,7 +291,7 @@ class EpochShardedTable(_Exchanged, EpochTable):
     ``MIN_SLOT_ENTRIES``), as ``krust_tpu`` sizes it."""
 
     def __init__(self, k: int, mesh: Mesh, max_parts: int = 8, slot: int = 0):
-        super().__init__(k, mesh.devices[slot], max_parts)
+        super().__init__(k, max_parts, device=mesh.devices[slot])
         self._mesh = mesh
         self._epoch_limit = max(self._epoch_limit // mesh.size, MIN_SLOT_ENTRIES)
 

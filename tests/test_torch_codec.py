@@ -9,6 +9,15 @@ Both emit row-major window order, so keys are compared position for
 position (integer work: tolerance 0), across k, bad-base shares of 0, 5%
 and 30%, all-bad padding rows and a last row that ends mid-byte.
 
+The rest of ``codec.py``'s surface against ``krust_tpu.ops.codec``:
+``encode_blocks`` (its plain version, and the packed route the CUDA path
+takes, pack -> ``encode_dense`` -> split, here on ``encode_dense``'s plain
+version) on clean, dirty (about 7% bad) and quality-masked rows (threshold
+53, ``"5"``, Q20) at k in {1, 2, 15, 16, 17, 21, 31, 32}: ``valid`` and
+every valid window's ``hi``/``lo`` equal bit for bit, ``hi`` = ``lo`` = 0
+where a window is not valid (the stated difference); ``unpack_2bit``;
+``split64`` / ``combine64``.
+
 The CUDA kernel against this plain version: tests/test_torch_cuda.py.
 """
 
@@ -21,9 +30,11 @@ import torch
 from krust_tpu.io import packer as jax_packer
 from krust_tpu.kmer import INVALID_CODE
 from krust_tpu.models.engines import _sentinel_part
+from krust_tpu.ops import codec as jax_codec
 from krust_tpu.ops.codec import encode_blocks, unpack_2bit
 from krust_tpu.ops.pallas_codec import encode_blocks_pallas
 from krust_tpu_torch.io import packer
+from krust_tpu_torch.ops import codec as port_codec
 from krust_tpu_torch.ops.codec import encode_dense, encode_dense_plain
 from krust_tpu_torch.ops.keys import key_dtype, keys_from_step, sentinel
 
@@ -127,3 +138,115 @@ def test_keys_from_step_forms_agree(k):
     sent = keys_from_step((s_lo,) if k <= 16 else (s_hi, s_lo), k)
     assert torch.equal(raw, sent)
     assert torch.all(raw[torch.from_numpy(~valid)] == sentinel(key_dtype(k)))
+
+
+# --- encode_blocks, unpack_2bit, split64 / combine64 ---------------------------------
+
+#: rows and windows of every encode_blocks case: 37 windows is no multiple
+#: of 4, so the packed route widens the rows and slices the padding off
+BLOCK_ROWS, BLOCK_W = 6, 37
+Q20 = ord("5")
+
+
+def _rows(k, kind, seed):
+    """codes [BLOCK_ROWS, BLOCK_W + k - 1] and quality bytes: clean rows,
+    about 7% bad bases, or about 5% of the bases below Q20."""
+    rng = np.random.default_rng(seed)
+    shape = (BLOCK_ROWS, BLOCK_W + k - 1)
+    codes = rng.integers(0, 4, size=shape, dtype=np.uint8)
+    qual = np.full(shape, ord("I"), np.uint8)
+    if kind == "dirty":
+        codes[rng.random(shape) < 0.07] = rng.integers(4, 256, dtype=np.uint8)
+    if kind == "quality":
+        qual[rng.random(shape) < 0.05] = rng.integers(33, Q20, dtype=np.uint8)
+        qual[0, :3] = Q20  # at the threshold: kept
+    if k == 32:  # G...C rows: canonical codes with bit 63 set
+        codes[1] = np.where(np.arange(shape[1]) % 2, 1, 2)
+    return codes, qual
+
+
+def _check_blocks(got, exp, k):
+    hi, lo, valid = got
+    e_hi, e_lo, e_valid = (np.asarray(a) for a in exp)
+    assert (hi.dtype, lo.dtype, valid.dtype) == (torch.uint32, torch.uint32, torch.bool)
+    assert hi.shape == lo.shape == valid.shape == (BLOCK_ROWS, BLOCK_W)
+    hi, lo, valid = hi.numpy(), lo.numpy(), valid.numpy()
+    np.testing.assert_array_equal(valid, e_valid)
+    np.testing.assert_array_equal(hi[valid], e_hi[e_valid])
+    np.testing.assert_array_equal(lo[valid], e_lo[e_valid])
+    assert not hi[~valid].any() and not lo[~valid].any()
+    if k <= 16:
+        assert not hi.any()
+
+
+@pytest.mark.parametrize("kind", ["clean", "dirty", "quality"])
+@pytest.mark.parametrize("k", [1, 2, 15, 16, 17, 21, 31, 32])
+def test_encode_blocks_matches_jax(k, kind):
+    codes, qual = _rows(k, kind, seed=k + 40 * len(kind))
+    thr = Q20 if kind == "quality" else None
+    exp = jax_codec.encode_blocks(codes, k, qual if thr else None, thr)
+    args = (torch.from_numpy(codes), k, torch.from_numpy(qual) if thr else None, thr)
+    _check_blocks(port_codec.encode_blocks(*args), exp, k)
+    _check_blocks(port_codec._encode_packed(*args), exp, k)
+    if kind != "clean":
+        assert not np.asarray(exp[2]).all()
+
+
+def test_encode_blocks_quality_needs_both():
+    """A threshold without quality bytes, or quality without a threshold,
+    filters nothing (as in krust_tpu)."""
+    codes, qual = _rows(21, "quality", seed=9)
+    plain = port_codec.encode_blocks(torch.from_numpy(codes), 21)
+    for q, t in ((torch.from_numpy(qual), None), (None, Q20)):
+        got = port_codec.encode_blocks(torch.from_numpy(codes), 21, q, t)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+def test_encode_blocks_rejects_bad_input():
+    codes = torch.zeros((2, 40), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        port_codec.encode_blocks(codes, 33)
+    with pytest.raises(ValueError):
+        port_codec.encode_blocks(codes.to(torch.int32), 21)
+    with pytest.raises(ValueError):
+        port_codec.encode_blocks(codes, 21, torch.zeros((2, 39), dtype=torch.uint8), Q20)
+
+
+@pytest.mark.parametrize("width", [1, 29, 64])
+def test_unpack_2bit_matches_jax(width):
+    rng = np.random.default_rng(width)
+    packed2 = rng.integers(0, 256, size=(5, -(-width // 4)), dtype=np.uint8)
+    badbits = rng.integers(0, 256, size=(5, -(-width // 8)), dtype=np.uint8)
+    got = port_codec.unpack_2bit(torch.from_numpy(packed2), torch.from_numpy(badbits), width)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), np.asarray(unpack_2bit(packed2, badbits, width)))
+
+
+@pytest.mark.parametrize("k", [5, 21])
+def test_pack_rows_round_trips_through_unpack(k):
+    """The CUDA route's packer: bases at 4 a byte and bad bits at 8 a byte
+    that unpack to the rows, every padding base bad."""
+    rng = np.random.default_rng(k)
+    codes = torch.from_numpy(rng.integers(0, 6, size=(4, 30 + k - 1), dtype=np.uint8))
+    packed2, badbits, w4 = port_codec.pack_rows(codes, k)
+    assert w4 == 32
+    back = port_codec.unpack_2bit(packed2, badbits, w4 + k - 1)
+    assert torch.equal(back[:, : codes.shape[1]], torch.where(codes < 4, codes, 4))
+    assert torch.all(back[:, codes.shape[1]:] == 4)
+
+
+def test_split64_combine64_match_jax():
+    rng = np.random.default_rng(64)
+    codes = np.concatenate([
+        rng.integers(0, 2**64 - 1, 1000, dtype=np.uint64, endpoint=True),
+        np.array([0, 1, 2**32 - 1, 2**32, 2**63, 2**63 + 5, 2**64 - 1], np.uint64),
+    ])
+    hi, lo = port_codec.split64(codes)
+    e_hi, e_lo = jax_codec.split64(codes)
+    assert hi.dtype == lo.dtype == np.uint32
+    np.testing.assert_array_equal(hi, e_hi)
+    np.testing.assert_array_equal(lo, e_lo)
+    back = port_codec.combine64(hi, lo)
+    assert back.dtype == np.uint64
+    np.testing.assert_array_equal(back, codes)
+    np.testing.assert_array_equal(back, jax_codec.combine64(hi, lo))

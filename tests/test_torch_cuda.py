@@ -18,7 +18,9 @@ from krust_tpu_torch.io.reader import ParsedStreams
 from krust_tpu_torch.kmer import INVALID_CODE
 from krust_tpu_torch.models.engines import BatchEngine, NativeEngine, NumpyEngine
 from krust_tpu_torch.ops.fused_codec import TAIL_BYTES, encode_windows, encode_windows_plain
-from krust_tpu_torch.ops.codec import encode_dense, encode_dense_plain
+from krust_tpu_torch.ops.codec import (
+    encode_blocks, encode_blocks_plain, encode_dense, encode_dense_plain,
+)
 from krust_tpu_torch.ops.count import (
     count_runs, count_unique, merge_runs, merge_runs_presorted, merge_weighted,
 )
@@ -255,6 +257,33 @@ def test_dense_codec_kernel_matches_plain(dev, k, w):
     assert torch.equal(got, encode_dense_plain(p2, bb, k, w))
 
 
+@pytest.mark.parametrize("quality", [False, True], ids=["codes", "quality"])
+@pytest.mark.parametrize("k", range(1, 33))
+def test_encode_blocks_on_cuda_matches_plain(dev, k, quality):
+    """``encode_blocks`` on the card (pack, K4 once, split) against its
+    plain version on the same rows: 7% bad bases, with quality bytes 5%
+    below the threshold 53 (Q20), 37 windows a row (widened to 40 for K4
+    and sliced back)."""
+    rng = np.random.default_rng(77 + k + 100 * quality)
+    shape = (33, 37 + k - 1)
+    codes = rng.integers(0, 4, size=shape, dtype=np.uint8)
+    codes[rng.random(shape) < 0.07] = INVALID_CODE
+    if k == 32:
+        codes[0] = 2  # canonical 32-mers with bit 63 set
+    qual = np.where(rng.random(shape) < 0.05, ord("#"), ord("I")).astype(np.uint8)
+    args = (torch.from_numpy(codes).to(dev), k,
+            torch.from_numpy(qual).to(dev) if quality else None, ord("5") if quality else None)
+    before = encode_dense.launches
+    got = encode_blocks(*args)
+    assert encode_dense.launches == before + 1
+    exp = encode_blocks_plain(*args)
+    assert [t.dtype for t in got] == [torch.uint32, torch.uint32, torch.bool]
+    for g, e in zip(got, exp):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), e.cpu())
+    assert 0 < int(got[2].sum()) < got[2].numel()
+
+
 def _dense_rows(rng, case, rows, w, k):
     """Base codes and bad flags [rows, w + k - 1] of a dense codec case."""
     width = w + k - 1
@@ -436,7 +465,7 @@ def test_device_table_on_cuda_matches_cpu(dev, k, max_parts):
     with unit weights and weighted parts, several compactions."""
     rng = np.random.default_rng(k + max_parts)
     dtype = torch.int32 if k <= 16 else torch.int64
-    on_card, on_cpu = DeviceTable(k, dev, max_parts), DeviceTable(k, torch.device("cpu"), max_parts)
+    on_card, on_cpu = DeviceTable(k, max_parts, device=dev), DeviceTable(k, max_parts, device="cpu")
     before = rle_compact.launches
     for i in range(11):
         keys, weight = _weighted_keys(rng, 20_000, dtype, 0.2)

@@ -364,7 +364,7 @@ def test_exports_match_jax():
                                                           "blockize"}
     assert set(port_io.__all__) <= set(jax_io.__all__)
     assert {"count_sharded", "make_mesh", "init_distributed", "ShardedTable",
-            "EpochShardedTable"} <= set(krust_tpu_torch.parallel.__all__)
+            "EpochShardedTable", "CapacityOverflow"} <= set(krust_tpu_torch.parallel.__all__)
 
 
 # --- several ranks, one process each (gloo) -----------------------------------------

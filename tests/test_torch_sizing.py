@@ -76,7 +76,7 @@ def test_epoch_part_and_flush_fit_the_budget(device_mem, mem):
 @pytest.mark.parametrize("mem", MEMS)
 def test_pending_compaction_fits_the_budget(device_mem, mem):
     device_mem(mem)
-    p = table_mod.DeviceTable(21, CPU)._pending_limit
+    p = table_mod.DeviceTable(21, device=CPU)._pending_limit
     peak = table_mod.MERGE_RUNS_FIXED_BYTES + table_mod.MERGE_RUNS_BYTES_PER_ENTRY * p
     assert peak <= table_mod.memory_budget(mem)
 
@@ -93,7 +93,7 @@ def test_limits_grow_with_memory(device_mem):
     for mem in sorted(MEMS + [1 * GIB, 16 * GIB, 40 * GIB, 192 * GIB]):
         device_mem(mem)
         epoch.append(table_mod.epoch_entry_limit(CPU))
-        pending.append(table_mod.DeviceTable(21, CPU)._pending_limit)
+        pending.append(table_mod.DeviceTable(21, device=CPU)._pending_limit)
     assert epoch == sorted(epoch) and pending == sorted(pending)
     assert epoch[0] == 1 << 20 or epoch[0] < epoch[-1]
 
@@ -138,7 +138,7 @@ def test_part_merge_frees_its_inputs_before_k2(monkeypatch, k):
     merged copy: weakrefs to every input tensor are cleared inside a
     patched ``rle_compact``; the merged table is unchanged."""
     rng = np.random.default_rng(k)
-    table = table_mod.EpochTable(k, CPU)
+    table = table_mod.EpochTable(k, device=CPU)
     table._compacted = [_compacted_part(rng, n, k, m)
                         for n, m in ((900, 1024), (700, 1024), (300, 512))]
     refs = [weakref.ref(t) for part in table._compacted for t in part[:2]]

@@ -583,7 +583,7 @@ def test_epoch_limit_env_and_scaling(monkeypatch):
     cpu = torch.device("cpu")
     monkeypatch.setenv("KRUST_EPOCH_ENTRIES", "12345")
     assert table_mod.epoch_entry_limit(cpu) == 12345
-    t = table_mod.EpochTable(11, cpu)
+    t = table_mod.EpochTable(11, device=cpu)
     assert t._epoch_limit == 12345 and t._adaptive is False
     monkeypatch.delenv("KRUST_EPOCH_ENTRIES")
     assert table_mod.epoch_entry_limit(cpu) == table_mod.EPOCH_ENTRY_LIMIT

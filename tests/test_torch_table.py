@@ -67,7 +67,7 @@ def _assert_tables(port, ref, expected):
 @pytest.mark.parametrize("max_parts", [2, 3, 8])
 def test_table_matches_jax_and_host_merge(max_parts, weighted):
     rng = np.random.default_rng(max_parts)
-    port, ref = DeviceTable(32, CPU, max_parts=max_parts), JaxDeviceTable(max_parts=max_parts)
+    port, ref = DeviceTable(32, max_parts=max_parts, device=CPU), JaxDeviceTable(max_parts=max_parts)
     expected: dict[int, int] = {}
     for _ in range(10):
         hi, lo, valid = _batch(rng, 1000, 32, 1 << 33)
@@ -78,13 +78,13 @@ def test_table_matches_jax_and_host_merge(max_parts, weighted):
 
 
 def test_table_empty():
-    codes, counts = DeviceTable(21, CPU).finalize()
+    codes, counts = DeviceTable(21, device=CPU).finalize()
     assert codes.shape == counts.shape == (0,)
     assert codes.dtype == counts.dtype == np.uint64
 
 
 def test_table_all_invalid_batch():
-    table = DeviceTable(21, CPU, max_parts=2)
+    table = DeviceTable(21, max_parts=2, device=CPU)
     for _ in range(3):
         table.add(torch.full((64,), torch.iinfo(torch.int64).max), None, 64)
     codes, counts = table.finalize()
@@ -98,7 +98,7 @@ def test_table_epoch_flush_merges_in_host_acc():
     acc, r_acc = _HostAccumulator(), _HostAccumulator()
     expected: dict[int, int] = {}
     for _epoch in range(2):
-        port, ref = DeviceTable(32, CPU, max_parts=2), JaxDeviceTable(max_parts=2)
+        port, ref = DeviceTable(32, max_parts=2, device=CPU), JaxDeviceTable(max_parts=2)
         for _ in range(4):
             hi, lo, valid = _batch(rng, 500, 32, 1 << 33)
             lo %= 20
@@ -117,7 +117,7 @@ def test_table_key_widths_match_jax(k):
     """Both key widths and the codes next to the sentinel (k = 16: bit 31
     set; k = 32: bit 63 set)."""
     rng = np.random.default_rng(2 + k)
-    port, ref = DeviceTable(k, CPU, max_parts=2), JaxDeviceTable(k, max_parts=2)
+    port, ref = DeviceTable(k, max_parts=2, device=CPU), JaxDeviceTable(k, max_parts=2)
     expected: dict[int, int] = {}
     top = (1 << (2 * k)) - 1
     for _ in range(5):
@@ -129,7 +129,7 @@ def test_table_key_widths_match_jax(k):
 
 def test_table_reuse_after_finalize():
     rng = np.random.default_rng(5)
-    port, ref = DeviceTable(17, CPU, max_parts=3), JaxDeviceTable(17, max_parts=3)
+    port, ref = DeviceTable(17, max_parts=3, device=CPU), JaxDeviceTable(17, max_parts=3)
     for _life in range(3):
         expected: dict[int, int] = {}
         for _ in range(4):
@@ -147,7 +147,7 @@ def test_pending_entries_env_forces_a_merge_per_add(monkeypatch):
                         lambda keys, cnt: merges.append(keys.numel()) or real(keys, cnt))
     monkeypatch.setenv("KRUST_PENDING_ENTRIES", "100")
     rng = np.random.default_rng(6)
-    port, ref = DeviceTable(21, CPU), JaxDeviceTable(21)
+    port, ref = DeviceTable(21, device=CPU), JaxDeviceTable(21)
     expected: dict[int, int] = {}
     for _ in range(6):
         _add_both(port, ref, *_batch(rng, 256, 21, 90), 21, expected, weighted=False)
@@ -159,20 +159,20 @@ def test_pending_entries_env_forces_a_merge_per_add(monkeypatch):
 
 def test_pending_limit_scales_and_counts_the_table_in(monkeypatch):
     monkeypatch.delenv("KRUST_PENDING_ENTRIES", raising=False)
-    assert DeviceTable(21, CPU)._pending_limit == DeviceTable.PENDING_ENTRY_LIMIT
+    assert DeviceTable(21, device=CPU)._pending_limit == DeviceTable.PENDING_ENTRY_LIMIT
     # the limit is the H100's own; a card of twice its memory gets twice it
     monkeypatch.setattr(table_mod, "_device_mem_bytes", lambda device: table_mod._REFERENCE_MEM)
-    assert DeviceTable(21, CPU)._pending_limit == DeviceTable.PENDING_ENTRY_LIMIT
+    assert DeviceTable(21, device=CPU)._pending_limit == DeviceTable.PENDING_ENTRY_LIMIT
     monkeypatch.setattr(table_mod, "_device_mem_bytes",
                         lambda device: 2 * table_mod._REFERENCE_MEM)
-    assert DeviceTable(21, CPU)._pending_limit == 2 * DeviceTable.PENDING_ENTRY_LIMIT
+    assert DeviceTable(21, device=CPU)._pending_limit == 2 * DeviceTable.PENDING_ENTRY_LIMIT
     # a table near the limit leaves the floor of limit / 8 pending entries
     monkeypatch.setenv("KRUST_PENDING_ENTRIES", "800")
     merges = []
     real = table_mod.merge_runs
     monkeypatch.setattr(table_mod, "merge_runs",
                         lambda keys, cnt: merges.append(keys.numel()) or real(keys, cnt))
-    table = DeviceTable(21, CPU, max_parts=100)
+    table = DeviceTable(21, max_parts=100, device=CPU)
     keys = torch.arange(1024, dtype=torch.int64) + torch.iinfo(torch.int64).min
     table.add(keys, None, 1024)  # 1024 >= 800: compacts; the table holds 1024
     for _ in range(2):
@@ -197,7 +197,7 @@ def test_table_slice_does_not_alias_the_merge_output(monkeypatch):
         return out
 
     monkeypatch.setattr(table_mod, "merge_runs", spy)
-    table = DeviceTable(21, CPU, max_parts=2)
+    table = DeviceTable(21, max_parts=2, device=CPU)
     rng = np.random.default_rng(7)
     for _ in range(2):
         keys, _ = parts_from_numpy(*_batch(rng, 4096, 21, 100)[:2], np.ones(4096, np.uint32), 21)
@@ -224,7 +224,7 @@ def test_add_defers_the_sync(monkeypatch):
         real(self)
 
     monkeypatch.setattr(DeviceTable, "_resolve", resolve)
-    table = DeviceTable(21, CPU, max_parts=2)
+    table = DeviceTable(21, max_parts=2, device=CPU)
     keys = torch.arange(64, dtype=torch.int64)
     table.add(keys, None, 64)
     table.add(keys, None, 64)  # compacts: dispatches merge 1, nothing to resolve
@@ -240,7 +240,7 @@ def test_weighted_parts_from_count_runs():
     """``count_runs`` gives the weighted part of a batch: adding those equals
     adding the raw keys."""
     rng = np.random.default_rng(8)
-    a, b = DeviceTable(16, CPU, max_parts=3), DeviceTable(16, CPU, max_parts=3)
+    a, b = DeviceTable(16, max_parts=3, device=CPU), DeviceTable(16, max_parts=3, device=CPU)
     for _ in range(5):
         hi, lo, valid = _batch(rng, 500, 16, 70)
         keys, _ = parts_from_numpy(hi, lo, valid.astype(np.uint32), 16, zero_is_padding=True)

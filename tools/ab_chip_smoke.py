@@ -9,8 +9,9 @@ parent, so drift on the card or its host falls on both alike. Every JSON
 line of every run goes to ``--out`` with the tree and the turn added. The
 last line of standard output is the summary: for each phase-2 row (kernel
 and shape), each tree's kernel ms in its turns and the row's bound; for
-each counting run of phases 3-7 (phase, k, bases), each tree's seconds. A
-run that fails stops the comparison.
+each counting line of phases 3-10 (its phase, case, table, process group,
+mesh, entry, k, bases and quality filter), each tree's seconds. A run
+that fails stops the comparison.
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ import sys
 #: fields of a phase-2 line that are measurements, not the row's shape
 _MEASURED = {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_bytes",
              "bound_ops", "max_abs_err", "equal", "gpu", "n_unique", "invalid_positions",
-             "launches", "library_call", "phase"}
+             "launches", "library_call", "phase", "k4_ms", "k4_bound_ms", "valid_share"}
+#: fields that tell a phase's counting runs apart (a list or a dict is no key)
+_CASE = ("phase", "case", "table", "process_group", "mesh", "entry", "k", "bases",
+         "min_quality")
 #: shape fields an older tree's lines may lack, with the value they had
 _DEFAULTS = {"encode_windows": {"invalid_share": 0.01}, "rle_compact": {"stream": "random"},
              "merge_sorted": {"parts": "random"}}
@@ -67,12 +71,13 @@ def main() -> int:
                     row = rows.setdefault(row_key(line), {"parent": [], "change": []})
                     row[tree].append(line["ms"])
                     row["bound_ms"] = line["bound_ms"]
-                elif "runs" in line or "seconds" in line:
-                    shape = {"phase": line["phase"], "k": line.get("k"),
-                             "bases": line.get("bases")}
+                elif isinstance(line.get("runs"), list) or "seconds" in line:
+                    shape = {f: line[f] for f in _CASE
+                             if not isinstance(line.get(f, []), (list, dict))}
                     row = rows.setdefault(json.dumps(shape), {"parent": [], "change": []})
-                    row[tree] += ([r["seconds"] for r in line["runs"]] if "runs" in line
-                                  else [line["seconds"]])
+                    runs = line.get("runs")
+                    row[tree] += ([r["seconds"] for r in runs if "seconds" in r]
+                                  if isinstance(runs, list) else [line["seconds"]])
     print(json.dumps({"ab": [{"row": json.loads(k), **v} for k, v in rows.items()]}))
     return 0
 
