@@ -17,11 +17,14 @@ Phases, printing JSON lines:
    function, that call's time (``library_ms``; never called by the port).
    K1 also runs with no invalid position, K2 on one run over every
    tile, and K4 at narrower rows (256 and 8 windows, equality only).
+   K4's code form (every window's code, bad bases as 0 on both strands,
+   and poison words) against its plain version at the narrower rows too.
    ``ops.codec.encode_blocks`` (krust_tpu's public codec: rows packed on
-   the card, K4, the keys split into hi, lo and valid) runs at K4's main
-   shape with quality at k = 16, 21 and 32, each call first as a path of
-   its own (counts zeroed, read after: K4 once), then against its plain
-   version, with its time and K4's own. The
+   the card, K4's code form, the codes split into hi, lo and valid) runs
+   at K4's main shape with quality at k = 16, 21 and 32, each call first
+   as a path of its own (counts zeroed, read after: K4 once), then against
+   its plain version on every window (tolerance 0, invalid windows
+   included), with its time and K4's own in both forms. The
    LSM table's ``merge_runs`` (``torch.sort`` plus K2 weighted) runs at a
    compaction's size, 8 x 33.5M raw keys plus a 2^26-entry table, against
    its CPU result. K3 runs on two random parts of 2^24 entries and on two parts
@@ -90,7 +93,11 @@ Phases, printing JSON lines:
    file at k = 15, each with the counters at 0 just before (K1 or K4, K2
    and K3 must launch), its seconds, per-card peak, exchanges,
    ``wire_bytes`` and the slots' shard sizes, the shards disjoint; then
-   ``krust_tpu_torch.entry.dryrun_multichip`` over every card. Every
+   ``krust_tpu_torch.entry.dryrun_multichip`` over every card. Then
+   phase 3's file over 3 slots of the one card at k = 21 and over 8 at
+   k = 15, counters at 0 just before each: each slot's shard equal to the
+   native core's table cut by a numpy copy of the owner formula
+   (``krust_tpu``'s hash of the code's halves, mod the slots). Every
    table equal to the native core's;
 10. BASELINE.md's five configurations and the streaming path, through the
    entry points users call. Every CLI run is the port's CLI entry point
@@ -463,8 +470,13 @@ def _check_dense(rng, gpu, dev, results):
             np.packbits(rng.random((n_rows, 8 * p8)) < 0.07, axis=1)).to(dev)
         if not torch.equal(encode_dense(p2, bb, k, w), encode_dense_plain(p2, bb, k, w)):
             raise AssertionError(f"K4 k={k} block_windows={w}: kernel != plain")
+        got = encode_dense(p2, bb, k, w, codes=True)
+        exp = encode_dense_plain(p2, bb, k, w, codes=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, exp)):
+            raise AssertionError(f"K4 code form k={k} block_windows={w}: kernel != plain")
+        del got, exp
         _emit({"phase": 2, "kernel": "encode_dense", "k": k, "rows": n_rows,
-               "block_windows": w, "equal": True})
+               "block_windows": w, "equal": True, "code_form_equal": True})
         del p2, bb
     results["encode_dense"] = dict(
         times[21], max_abs_err=max(t["max_abs_err"] for t in times.values())
@@ -477,8 +489,10 @@ def _check_encode_blocks(rng, gpu, dev, results):
     5% below the threshold 53 (Q20). For each k in 16, 21, 32 the path
     runs first: the counts zeroed, one ``encode_blocks`` call, the counts
     read (K4 once, no other kernel). Then its output against its plain
-    version on the same rows (tolerance 0), its time (pack, K4 and split)
-    and K4's own on the packed rows, each beside its bound."""
+    version on the same rows, ``hi``, ``lo`` and ``valid`` on every window
+    (tolerance 0; where a window is not valid, the code of krust_tpu's
+    substitution), its time (pack, K4's code form and split) and K4's own
+    on the packed rows in both forms, each beside its bound."""
     import torch
 
     from krust_tpu_torch.kmer import INVALID_CODE
@@ -507,21 +521,29 @@ def _check_encode_blocks(rng, gpu, dev, results):
         if err or not all(torch.equal(a, b) for a, b in wide):
             raise AssertionError(f"encode_blocks k={k}: K4 route != plain")
         valid_share = got[2].float().mean().item()
+        # invalid windows whose lo is not 0: krust_tpu's substituted codes are there
+        invalid_nonzero = int(((wide[1][0] != 0) & ~got[2]).sum().item())
         del got, exp, wide
         ms = _time_ms(lambda: codec.encode_blocks(c, k, q, thr))
         plain_ms = _time_ms(lambda: codec.encode_blocks_plain(c, k, q, thr), 2)
         packed2, badbits, w4 = codec.pack_rows(c, k, q, thr)
-        k4_ms = _time_ms(lambda: codec.encode_dense(packed2, badbits, k, w4))
+        k4_ms = _time_ms(lambda: codec.encode_dense(packed2, badbits, k, w4, codes=True))
+        k4_count_ms = _time_ms(lambda: codec.encode_dense(packed2, badbits, k, w4))
         key_bytes = 4 if k <= 16 else 8
         # codes and quality read once; hi, lo (uint32) and valid (bool) written once
         bound = _bound(2 * c.numel() + 9 * rows * w, _codec_ops(rows * w, k))
-        k4_bound = _bound(packed2.numel() + badbits.numel() + key_bytes * rows * w4,
-                          _codec_ops(rows * w4, k))
+        # the code form: the counting form's bytes and a uint32 of poison a run
+        k4_bytes = packed2.numel() + badbits.numel() + key_bytes * rows * w4
+        k4_bound = _bound(k4_bytes + 4 * rows * -(-w4 // 32), _codec_ops(rows * w4, k))
+        k4_count_bound = _bound(k4_bytes, _codec_ops(rows * w4, k))
         _emit({"phase": 2, "kernel": "encode_blocks", "k": k, "rows": rows, "windows": w,
                "bad_share": 0.07, "quality_threshold": thr, "low_quality_share": 0.05,
-               "valid_share": valid_share, "launches": path, "equal": True, "ms": ms,
+               "valid_share": valid_share, "invalid_windows_lo_nonzero": invalid_nonzero,
+               "launches": path, "equal": True, "ms": ms,
                "plain_ms": plain_ms, "max_abs_err": err, "library_ms": None, **bound,
-               "k4_ms": k4_ms, "k4_bound_ms": k4_bound["bound_ms"], "gpu": gpu})
+               "k4_ms": k4_ms, "k4_bound_ms": k4_bound["bound_ms"],
+               "k4_count_form_ms": k4_count_ms,
+               "k4_count_form_bound_ms": k4_count_bound["bound_ms"], "gpu": gpu})
         del c, q, packed2, badbits
     results["encode_blocks_launches"] = launches
 
@@ -573,7 +595,8 @@ def _check_merge_keys(rng, gpu, dev, results):
 
 def _check_merge_runs(g, gpu, dev) -> list:
     """The LSM table's compaction: ``batches`` batches of 33.5M raw int64
-    window keys (unit weights, 1% sentinels, drawn from 46M distinct keys)
+    window keys (unit weights, 1% sentinels that weigh 0 as the table
+    weighs its invalid windows, drawn from 46M distinct keys)
     plus a compacted 2^26-entry table (46M keys with counts, sentinel
     tail), through ``merge_runs``. At its full size (8 batches) also on the
     CPU (K2's plain version underneath), equal; at 2 and 24 batches for
@@ -593,7 +616,7 @@ def _check_merge_runs(g, gpu, dev) -> list:
         raw = t_keys[torch.randint(0, n_pool, (n_raw,), generator=g, device=dev)]
         raw[torch.rand(n_raw, generator=g, device=dev) < 0.01] = torch.iinfo(torch.int64).max
         keys = torch.cat([raw, t_keys])
-        cnt = torch.cat([torch.ones(n_raw, dtype=torch.int32, device=dev), t_cnt])
+        cnt = torch.cat([(raw != torch.iinfo(torch.int64).max).to(torch.int32), t_cnt])
         del raw, t_keys, t_cnt
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1480,7 +1503,8 @@ def _phase9_mesh(gpu, main, main4, dirty, seen) -> dict:
     core's (so no lifetime's table held a key twice: the shards were
     disjoint), each exchange's shard sizes must sum to the entries pulled,
     and after one exchange each shard's size must be the number of the
-    table's keys its hash owns. Then ``dryrun_multichip`` over every card.
+    table's keys its hash owns. Then 3 and 8 slots of cuda:0
+    (:func:`_phase9_odd_slots`) and ``dryrun_multichip`` over every card.
     Returns the launches of phase 4's file on the 4 slots."""
     import contextlib
     import io
@@ -1563,11 +1587,83 @@ def _phase9_mesh(gpu, main, main4, dirty, seen) -> dict:
             _emit(row)
             if name == meshes[0][0] and window_limit:
                 launches4 = launches
+    for slots, k, exp in ((3, 21, exp3), (8, 15, exp15)):
+        _phase9_odd_slots(gpu, path3, k, exp, slots, seen)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         dryrun_multichip(cards)
     _emit({"phase": 9, "dryrun_multichip": out.getvalue().strip(), "gpu": gpu})
     return launches4
+
+
+def _np_owner(codes: np.ndarray, n: int) -> np.ndarray:
+    """The owner slot of uint64 codes among n, in numpy and independent of
+    the port: krust_tpu's hash of the code's 32-bit halves (``(hi * MIX1)
+    ^ (lo * MIX2)``, two xorshift-multiply rounds, all mod 2^32), mod n."""
+    m32, mix1, mix2 = np.uint64(0xFFFFFFFF), np.uint64(0x9E3779B1), np.uint64(0x85EBCA77)
+    hi, lo = codes >> np.uint64(32), codes & m32
+    h = ((hi * mix1) & m32) ^ ((lo * mix2) & m32)
+    h ^= h >> np.uint64(16)
+    h = (h * mix1) & m32
+    h ^= h >> np.uint64(13)
+    return h % np.uint64(n)
+
+
+def _phase9_odd_slots(gpu, path, k, exp, slots, seen) -> None:
+    """Phase 3's file over ``slots`` slots of cuda:0 (3 and 8: slot counts
+    that do not divide 4) through ``count_kmers_sharded_result``, the
+    counters at 0 just before: K1, K2 and K3 must launch, the table must
+    equal the native core's, and each slot's shard (read from the
+    exchange, one lifetime: one exchange) must be the native table's
+    entries that :func:`_np_owner` gives that slot."""
+    import torch
+
+    from krust_tpu_torch import api
+    from krust_tpu_torch.ops.keys import keys_to_codes
+    from krust_tpu_torch.parallel import sharded as sharded_mod
+    from krust_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * slots)
+    shards = []
+    real = sharded_mod._exchange
+
+    def exchange(parts, mesh_, k_):
+        out = real(parts, mesh_, k_)
+        shards.append([(keys_to_codes(keys[:m].cpu().numpy(), k_),
+                        cnt[:m].cpu().numpy().astype(np.uint64)) for keys, cnt, m in out])
+        return out
+
+    seen.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sharded_mod._exchange = exchange
+    _zero_launches()
+    try:
+        t0 = time.perf_counter()
+        got = api.count_kmers_sharded_result(path, k, mesh=mesh)
+        sec = time.perf_counter() - t0
+    finally:
+        sharded_mod._exchange = real
+    launches = _launches()
+    tag = f"phase 9 {slots} slots on cuda:0, phase 3's file, k={k}"
+    if (min(launches[n] for n in ("encode_windows", "rle_compact", "merge_sorted")) <= 0
+            or launches["encode_dense"] != 0):
+        raise AssertionError(f"{tag}: a kernel of the path did not launch: {launches}")
+    _assert_equal(got, exp, tag)
+    if len(shards) != 1 or len(shards[0]) != slots:
+        raise AssertionError(f"{tag}: {len(shards)} exchanges")
+    owner = _np_owner(exp.codes, slots)
+    for g, (codes, counts) in enumerate(shards[0]):
+        mine = owner == g
+        if not (np.array_equal(codes, exp.codes[mine])
+                and np.array_equal(counts, exp.counts[mine].astype(np.uint64))):
+            raise AssertionError(f"{tag}: slot {g}'s shard is not its owner's cut")
+    sizes = [e["sizes"] for e in seen.get("shard_sizes", [])]
+    _emit({"phase": 9, "mesh": f"{slots} slots on cuda:0", "count": "phase 3's file", "k": k,
+           "distinct": got.distinct, "equal_to_native": True,
+           "shards_equal_owner_cut": True, "seconds": sec,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+           "shard_sizes": sizes, "gpu": gpu})
 
 
 # --- phase 10: the public surface -------------------------------------------------

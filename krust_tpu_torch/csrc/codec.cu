@@ -13,6 +13,18 @@
 // end are set). Output: rows * W keys in row-major window order, the
 // sentinel for a window holding a bad base.
 //
+// A second, code form (encode_codes_kernel) serves the public codec
+// encode_blocks (krust_tpu/ops/codec.py:encode_blocks, whose Pallas twin
+// substitutes alike): every window's canonical code with a bad base taken
+// as code 0 on the forward strand and 0 on the complement strand, and no
+// sentinel; validity goes to a plane of its own, the run's 32 poison bits
+// as one uint32 a run (1/8 B a window against 4 or 8 B of key, one store a
+// thread that its neighbours' make coalesced; the glue widens it to bool).
+// A thread masks its run's words once (codec_tile.cuh substitute_run), so
+// a window costs what it costs in the counting form. Both forms are one
+// body, encode_rows<Key, kCodes>, and the counting form's instantiation
+// reads and computes nothing of the code form's.
+//
 // Bound on the H100: bytes. A row reads 0.375 B/base and writes 4 B
 // (k <= 16) or 8 B (k > 16) per window, so the write dominates; the
 // arithmetic is far below the card's integer rate. Design: the tile of
@@ -102,11 +114,17 @@ __device__ __forceinline__ uint32_t be_word(uint32_t lo, uint32_t hi, int sh) {
   return __byte_perm(lo, hi, 0x0123 + 0x1111 * sh);
 }
 
-template <typename Key>
-__global__ void __launch_bounds__(kThreads)
-encode_dense_kernel(const uint8_t* __restrict__ packed2,
-                    const uint8_t* __restrict__ badbits, int64_t rows, int64_t p4,
-                    int64_t p8, int k, int64_t w, Key* __restrict__ out) {
+// The rows' keys (kCodes false: the counting form, the sentinel for a
+// poisoned window) or codes (kCodes true: the code form, every window's
+// code with bad bases substituted, and each run's poison bits, windows past
+// w set, to poison[row * runs_per_row + run]). The kernels below share it;
+// the counting form reads and computes nothing of the code form's.
+template <typename Key, bool kCodes>
+__device__ __forceinline__ void encode_rows(const uint8_t* __restrict__ packed2,
+                                            const uint8_t* __restrict__ badbits,
+                                            int64_t rows, int64_t p4, int64_t p8, int k,
+                                            int64_t w, Key* __restrict__ out,
+                                            uint32_t* __restrict__ poison) {
   extern __shared__ __align__(16) uint8_t s_in[];
   __shared__ __align__(16) Key s_out[KeyRun<Key>::kStage];
 
@@ -142,7 +160,17 @@ encode_dense_kernel(const uint8_t* __restrict__ packed2,
     const uint64_t bad = static_cast<uint64_t>(__brev(be_word(u[1], u[2], a8 & 3))) << 32 |
                          __brev(be_word(u[0], u[1], a8 & 3));
     KeyRun<Key> keys;
-    key_run<Key>(b, window_poison(bad, k), k, keys);
+    if constexpr (kCodes) {
+      uint32_t fw[4], cw[4];
+      substitute_run(b, bad, fw, cw);
+      code_run<Key>(fw, cw, k, keys);
+      // windows past w (a partial last run) are no windows: poisoned
+      const int64_t left = w - static_cast<int64_t>(run) * kRun;
+      const uint32_t past = left < kRun ? ~0u << left : 0u;
+      poison[row * tile.runs_per_row + run] = window_poison(bad, k) | past;
+    } else {
+      key_run<Key>(b, window_poison(bad, k), k, keys);
+    }
     if (staged) {
       stage_run<Key>(keys, s_out, t);
     } else {
@@ -166,17 +194,42 @@ encode_dense_kernel(const uint8_t* __restrict__ packed2,
   }
 }
 
+// The counting form: the dense path's keys.
+template <typename Key>
+__global__ void __launch_bounds__(kThreads)
+encode_dense_kernel(const uint8_t* __restrict__ packed2,
+                    const uint8_t* __restrict__ badbits, int64_t rows, int64_t p4,
+                    int64_t p8, int k, int64_t w, Key* __restrict__ out) {
+  encode_rows<Key, false>(packed2, badbits, rows, p4, p8, k, w, out, nullptr);
+}
+
+// The code form: encode_blocks' codes and poison bits.
+template <typename Key>
+__global__ void __launch_bounds__(kThreads)
+encode_codes_kernel(const uint8_t* __restrict__ packed2,
+                    const uint8_t* __restrict__ badbits, int64_t rows, int64_t p4,
+                    int64_t p8, int k, int64_t w, Key* __restrict__ out,
+                    uint32_t* __restrict__ poison) {
+  encode_rows<Key, true>(packed2, badbits, rows, p4, p8, k, w, out, poison);
+}
+
 template <typename Key>
 int launch(const void* packed2, const void* badbits, int64_t rows, int64_t p4,
-           int64_t p8, int k, int64_t w, void* out, void* stream) {
+           int64_t p8, int k, int64_t w, void* out, void* poison, void* stream) {
   if (rows > 0 && w > 0) {
     const DenseTile tile(w);
     const int64_t blocks = (rows + tile.segs - 1) / tile.segs * tile.col_tiles;
-    encode_dense_kernel<Key><<<static_cast<unsigned>(blocks), kThreads, tile.smem_bytes(),
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(packed2),
-        static_cast<const uint8_t*>(badbits), rows, p4, p8, k, w,
-        static_cast<Key*>(out));
+    const auto in2 = static_cast<const uint8_t*>(packed2);
+    const auto in8 = static_cast<const uint8_t*>(badbits);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (poison == nullptr) {
+      encode_dense_kernel<Key><<<static_cast<unsigned>(blocks), kThreads, tile.smem_bytes(),
+                                 s>>>(in2, in8, rows, p4, p8, k, w, static_cast<Key*>(out));
+    } else {
+      encode_codes_kernel<Key><<<static_cast<unsigned>(blocks), kThreads, tile.smem_bytes(),
+                                 s>>>(in2, in8, rows, p4, p8, k, w, static_cast<Key*>(out),
+                                      static_cast<uint32_t*>(poison));
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -192,7 +245,7 @@ KRUST_API int krust_encode_dense_i32(int device, const void* packed2,
                                      void* out, void* stream) {
   const DeviceScope scope(device);
   if (scope.error()) return scope.error();
-  return launch<int32_t>(packed2, badbits, rows, p4, p8, k, w, out, stream);
+  return launch<int32_t>(packed2, badbits, rows, p4, p8, k, w, out, nullptr, stream);
 }
 
 KRUST_API int krust_encode_dense_i64(int device, const void* packed2,
@@ -201,5 +254,26 @@ KRUST_API int krust_encode_dense_i64(int device, const void* packed2,
                                      void* out, void* stream) {
   const DeviceScope scope(device);
   if (scope.error()) return scope.error();
-  return launch<int64_t>(packed2, badbits, rows, p4, p8, k, w, out, stream);
+  return launch<int64_t>(packed2, badbits, rows, p4, p8, k, w, out, nullptr, stream);
+}
+
+// The code form, as above plus poison: rows * ceil(w / 32) uint32 words,
+// bit r of word (row, run) set where window 32 run + r of the row holds a
+// bad base or lies past w.
+KRUST_API int krust_encode_codes_i32(int device, const void* packed2,
+                                     const void* badbits, int64_t rows,
+                                     int64_t p4, int64_t p8, int k, int64_t w,
+                                     void* out, void* poison, void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error()) return scope.error();
+  return launch<int32_t>(packed2, badbits, rows, p4, p8, k, w, out, poison, stream);
+}
+
+KRUST_API int krust_encode_codes_i64(int device, const void* packed2,
+                                     const void* badbits, int64_t rows,
+                                     int64_t p4, int64_t p8, int k, int64_t w,
+                                     void* out, void* poison, void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error()) return scope.error();
+  return launch<int64_t>(packed2, badbits, rows, p4, p8, k, w, out, poison, stream);
 }

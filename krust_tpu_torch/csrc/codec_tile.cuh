@@ -15,6 +15,12 @@
 //   - key_run / stage_run / store_tile: the run's keys, staged in shared
 //     memory (one pad vector per thread row, no bank conflicts) and written
 //     out as coalesced 16-byte stores.
+// K4's code form (krust_tpu's encode_blocks output) keys every window, a
+// window that holds a bad base included, with krust_tpu's substitution: a
+// bad base is code 0 on the forward strand and 0 on the complement strand
+// too (not 3 - 0). substitute_run masks the run's forward and complement
+// words once, and WindowCode<Key>::code / code_run key its windows from them
+// with the same handful of operations as Window<Key>::key.
 #pragma once
 
 #include "common.cuh"
@@ -68,6 +74,63 @@ struct Window<int64_t> {
   }
 };
 
+// K4's code form: window r's canonical code, biased, from the run's
+// substituted forward words fw and complement words cw (substitute_run):
+// the forward code as Window<Key>::key takes it, the reverse complement the
+// complement words bit-reversed with their bit pairs swapped back, masked
+// to 2k bits (the complement is taken already, so no NOT).
+template <typename Key>
+struct WindowCode;
+
+template <>
+struct WindowCode<int32_t> {
+  static __device__ __forceinline__ int32_t code(const uint32_t (&fw)[4],
+                                                 const uint32_t (&cw)[4], int r, int k) {
+    const uint32_t fwd = bases_at(fw, r) >> (32 - 2 * k);
+    const uint32_t mask = k == 16 ? ~0u : (1u << (2 * k)) - 1;
+    const uint32_t rc = swap_pairs(__brev(bases_at(cw, r))) & mask;
+    return KeyTraits<int32_t>::from_code(rc < fwd ? rc : fwd);
+  }
+};
+
+template <>
+struct WindowCode<int64_t> {
+  static __device__ __forceinline__ int64_t code(const uint32_t (&fw)[4],
+                                                 const uint32_t (&cw)[4], int r, int k) {
+    const uint64_t x = static_cast<uint64_t>(bases_at(fw, r)) << 32 | bases_at(fw, r + 16);
+    const uint64_t c = static_cast<uint64_t>(bases_at(cw, r)) << 32 | bases_at(cw, r + 16);
+    const uint64_t fwd = x >> (64 - 2 * k);
+    const uint64_t mask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
+    const uint64_t rc = swap_pairs(static_cast<uint64_t>(__brevll(c))) & mask;
+    return KeyTraits<int64_t>::from_code(rc < fwd ? rc : fwd);
+  }
+};
+
+// The 16 bad bits b (bit j: base j) as a big-endian pair mask: both bits
+// of base j's pair (bits 31 - 2j and 30 - 2j) set where it is bad. The bits
+// spread to bit 2j, double to the pair, and __brev turns the word round.
+__device__ __forceinline__ uint32_t pair_mask(uint32_t b) {
+  b &= 0xFFFFu;
+  b = (b | b << 8) & 0x00FF00FFu;
+  b = (b | b << 4) & 0x0F0F0F0Fu;
+  b = (b | b << 2) & 0x33333333u;
+  b = (b | b << 1) & 0x55555555u;
+  return __brev(b | b << 1);
+}
+
+// krust_tpu's substitution over a run's 64 bases w and their bad bits d
+// (bit i: base i): the forward words with a bad base's pair cleared, and
+// the complement words (~w) with it cleared too.
+__device__ __forceinline__ void substitute_run(const uint32_t (&w)[4], uint64_t d,
+                                               uint32_t (&fw)[4], uint32_t (&cw)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t good = ~pair_mask(static_cast<uint32_t>(d >> (16 * q)));
+    fw[q] = w[q] & good;
+    cw[q] = ~w[q] & good;
+  }
+}
+
 // Bit r (r < 32): window r holds a bad base, from the bad-base bits d of
 // the 64 bases from the run's first: the OR of bits [r, r + k), by doubling
 // to the largest power of two len <= k.
@@ -99,6 +162,15 @@ __device__ __forceinline__ void key_run(const uint32_t (&w)[4], uint32_t poison,
   for (int r = 0; r < kRun; ++r) {
     keys.key[r] = (poison >> r) & 1 ? KeyTraits<Key>::kSentinel : Window<Key>::key(w, r, k);
   }
+}
+
+// K4's code form: the codes of every window of the run, bad bases
+// substituted (substitute_run), no sentinel.
+template <typename Key>
+__device__ __forceinline__ void code_run(const uint32_t (&fw)[4], const uint32_t (&cw)[4],
+                                         int k, KeyRun<Key>& keys) {
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) keys.key[r] = WindowCode<Key>::code(fw, cw, r, k);
 }
 
 // Thread t's run into its row of the stage.

@@ -23,13 +23,16 @@ of 32.
 :func:`encode_dense` launches the CUDA kernel for CUDA tensors and runs
 :func:`encode_dense_plain`, the plain PyTorch version, for CPU tensors.
 
-The rest of ``krust_tpu/ops/codec.py``'s surface, with its signatures:
+K4 has a second output form, the code form (``encode_dense(...,
+codes=True)``): every window's canonical code with ``krust_tpu``'s
+substitution for a bad base (code 0 on both strands) and no sentinel, and
+each run of 32 windows' poison bits as one word. It serves the rest of
+``krust_tpu/ops/codec.py``'s surface, with its signatures:
 :func:`encode_blocks` (base-code rows, optional quality -> ``(hi, lo,
-valid)``; on CUDA tensors the rows are packed into K4's input by a few
-elementwise ops and K4 encodes them), :func:`unpack_2bit` and the host
-helpers :func:`split64` / :func:`combine64`. One difference: where
-``valid`` is False, ``hi`` and ``lo`` are 0 (the reference leaves the
-codes of its zero substitution there; every consumer masks them).
+valid)``, equal to ``krust_tpu``'s on every window; on CUDA tensors the
+rows are packed into K4's input by a few elementwise ops and K4's code
+form encodes them), :func:`unpack_2bit` and the host helpers
+:func:`split64` / :func:`combine64`.
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ import torch
 
 from ..kmer import INVALID_CODE
 from . import _cuda
-from .fused_codec import window_keys_plain
-from .keys import key_dtype, split_keys
+from .fused_codec import window_codes_plain
+from .keys import key_dtype, sentinel, split_keys
 
 
 def unpack_2bit(packed2: torch.Tensor, badbits: torch.Tensor, width: int) -> torch.Tensor:
@@ -63,26 +66,55 @@ def _good(codes, qual, quality_threshold) -> torch.Tensor:
     return good
 
 
-def _row_keys(codes: torch.Tensor, good: torch.Tensor, k: int, n_windows: int):
-    """Poisoned canonical keys of the first ``n_windows`` windows of each
-    row of base codes (a window holding a base not ``good`` is the
-    sentinel)."""
+def _row_codes(codes, good, k: int, n_windows: int):
+    """(keys, poisoned) of the first ``n_windows`` windows of each row of
+    base codes, ``krust_tpu``'s substitution in the keys (a base not
+    ``good`` is 0 on both strands), no sentinel."""
     bases = torch.where(good, codes, 0).to(torch.int64)
-    return window_keys_plain(bases, ~good, k, n_windows)
+    return window_codes_plain(bases, ~good, k, n_windows)
+
+
+def poison_words(poisoned: torch.Tensor) -> torch.Tensor:
+    """A bool plane [rows, w] -> the code form's poison plane, int32 [rows,
+    ceil(w / 32)]: bit r of word (row, run) set where window 32 run + r is
+    poisoned or lies past w."""
+    rows, w = poisoned.shape
+    runs = -(-w // 32)
+    bits = torch.nn.functional.pad(poisoned, (0, 32 * runs - w), value=True)
+    shifts = torch.arange(32, dtype=torch.int64, device=poisoned.device)
+    words = (bits.view(rows, runs, 32).to(torch.int64) << shifts).sum(-1)
+    return (words - ((words >> 31) << 32)).to(torch.int32)  # as int32 bits
+
+
+def valid_of(poison: torch.Tensor, w: int) -> torch.Tensor:
+    """The code form's poison plane, int32 [rows, runs] -> valid, bool
+    [rows, w]: the inverse of :func:`poison_words`. Elementwise torch on
+    the plane's device."""
+    shifts = torch.arange(32, dtype=torch.int32, device=poison.device)
+    bits = (poison[:, :, None] >> shifts) & 1
+    return (bits == 0).reshape(poison.shape[0], -1)[:, :w]
 
 
 def encode_dense_plain(
-    packed2: torch.Tensor, badbits: torch.Tensor, k: int, block_windows: int
-) -> torch.Tensor:
-    """Plain PyTorch version of :func:`encode_dense` (same contract)."""
-    codes = unpack_2bit(packed2, badbits, block_windows + k - 1)
-    return _row_keys(codes, codes < INVALID_CODE, k, block_windows).reshape(-1)
+    packed2: torch.Tensor, badbits: torch.Tensor, k: int, block_windows: int,
+    *, codes: bool = False,
+):
+    """Plain PyTorch version of :func:`encode_dense` (same contract, both
+    forms)."""
+    bases = unpack_2bit(packed2, badbits, block_windows + k - 1)
+    keys, poisoned = _row_codes(bases, bases < INVALID_CODE, k, block_windows)
+    if codes:
+        return keys.reshape(-1), poison_words(poisoned)
+    return keys.masked_fill_(poisoned, sentinel(keys.dtype)).reshape(-1)
 
 
 def encode_dense(
-    packed2: torch.Tensor, badbits: torch.Tensor, k: int, block_windows: int
-) -> torch.Tensor:
-    """Poisoned canonical keys of every window of a dense batch.
+    packed2: torch.Tensor, badbits: torch.Tensor, k: int, block_windows: int,
+    *, codes: bool = False,
+):
+    """Poisoned canonical keys of every window of a dense batch (the
+    counting form), or with ``codes`` every window's code and the poison
+    bits (the code form, :func:`encode_blocks`' step).
 
     Args:
       packed2: uint8 [rows, ceil((W + k - 1) / 4)]: each row's bases, 4 per
@@ -93,10 +125,15 @@ def encode_dense(
 
     Returns:
       keys [rows * W] (int32 for k <= 16, int64 otherwise), row-major
-      window order; a window holding a bad base is the sentinel.
+      window order; a window holding a bad base is the sentinel. With
+      ``codes``: (keys, poison), the keys of every window with a bad base
+      taken as code 0 on both strands (``krust_tpu``'s substitution, no
+      sentinel) and int32 [rows, ceil(W / 32)] poison words, bit r of word
+      (row, run) set where window 32 run + r holds a bad base or lies past
+      W (:func:`valid_of` widens them).
     """
     if packed2.device.type == "cpu":
-        return encode_dense_plain(packed2, badbits, k, block_windows)
+        return encode_dense_plain(packed2, badbits, k, block_windows, codes=codes)
     _cuda.require_cuda("encode_dense", packed2, badbits)
     width = block_windows + k - 1
     p4, p8 = -(-width // 4), -(-width // 8)  # packed2 / badbits bytes per row
@@ -113,14 +150,19 @@ def encode_dense(
     dt = key_dtype(k)
     out = torch.empty(rows * block_windows, dtype=dt, device=packed2.device)
     lib = _cuda.library()
-    fn = lib.krust_encode_dense_i32 if dt == torch.int32 else lib.krust_encode_dense_i64
-    err = fn(
-        packed2.device.index, packed2.data_ptr(), badbits.data_ptr(), rows, p4, p8,
-        k, block_windows, out.data_ptr(), _cuda.stream_of(packed2),
-    )
+    args = (packed2.device.index, packed2.data_ptr(), badbits.data_ptr(), rows, p4, p8,
+            k, block_windows, out.data_ptr())
+    if codes:
+        poison = torch.empty(rows, -(-block_windows // 32), dtype=torch.int32,
+                             device=packed2.device)
+        fn = lib.krust_encode_codes_i32 if dt == torch.int32 else lib.krust_encode_codes_i64
+        err = fn(*args, poison.data_ptr(), _cuda.stream_of(packed2))
+    else:
+        fn = lib.krust_encode_dense_i32 if dt == torch.int32 else lib.krust_encode_dense_i64
+        err = fn(*args, _cuda.stream_of(packed2))
     encode_dense.launches += 1
     _cuda.check("encode_dense", err)
-    return out
+    return (out, poison) if codes else out
 
 
 encode_dense.launches = 0
@@ -145,17 +187,19 @@ def encode_blocks_plain(
 ):
     """Plain PyTorch version of :func:`encode_blocks` (same contract)."""
     _check_blocks(codes, k, qual)
-    keys = _row_keys(codes, _good(codes, qual, quality_threshold), k,
-                     codes.shape[-1] - (k - 1))
-    return split_keys(keys, k)
+    keys, poisoned = _row_codes(codes, _good(codes, qual, quality_threshold), k,
+                                codes.shape[-1] - (k - 1))
+    return split_keys(keys, k, ~poisoned)
 
 
 def pack_rows(codes, k: int, qual=None, quality_threshold=None):
     """Rows of base codes [B, W + k - 1] -> K4's input at ``block_windows``
     = W rounded up to a multiple of 4: (packed2, badbits, that width). 4
     bases a byte and 8 bad bits a byte, first base in the high bits; an
-    invalid base, one below the quality threshold and the padding are bad.
-    Elementwise torch on the rows' device."""
+    invalid base, one below the quality threshold and the padding are bad,
+    and each is packed as code 0 (``krust_tpu``'s substitution; K4's code
+    form masks bad bases itself as well). Elementwise torch on the rows'
+    device."""
     good = _good(codes, qual, quality_threshold)
     rows, width = codes.shape
     w4 = -(-(width - (k - 1)) // 4) * 4
@@ -189,11 +233,12 @@ def encode_blocks(
 
     Returns:
       (hi, lo, valid): uint32 [B, W], uint32 [B, W], bool [B, W]; the
-      canonical code is ``hi << 32 | lo`` (``hi`` is 0 for k <= 16), and
-      ``hi`` = ``lo`` = 0 where ``valid`` is False.
+      canonical code is ``hi << 32 | lo`` (``hi`` is 0 for k <= 16). Where
+      ``valid`` is False it is ``krust_tpu``'s: the canonical code of the
+      window with every bad base taken as code 0 on both strands.
 
-    CUDA tensors: the rows are packed (:func:`pack_rows`) and K4
-    (:func:`encode_dense`) encodes them; CPU tensors:
+    CUDA tensors: the rows are packed (:func:`pack_rows`) and K4's code
+    form (:func:`encode_dense` with ``codes``) encodes them; CPU tensors:
     :func:`encode_blocks_plain`.
     """
     if codes.device.type == "cpu":
@@ -205,19 +250,22 @@ def encode_blocks(
 
 def _encode_packed(codes, k: int, qual, quality_threshold):
     """:func:`encode_blocks` through K4: :func:`pack_rows`, then
-    :func:`encode_dense` at the widened ``block_windows``, the padding
-    windows sliced off, the keys split (on CPU tensors ``encode_dense``
-    runs its plain version, which the tests use to hold this path)."""
+    :func:`encode_dense`'s code form at the widened ``block_windows`` (one
+    launch), the padding windows sliced off, the keys split with the
+    widened poison plane (on CPU tensors ``encode_dense`` runs its plain
+    version, which the tests use to hold this path)."""
     lead, width = codes.shape[:-1], codes.shape[-1]
     w = width - (k - 1)
     rows = codes.reshape(-1, width)
     if rows.shape[0] == 0 or w == 0:
         keys = torch.empty(rows.shape[0], w, dtype=key_dtype(k), device=codes.device)
+        valid = torch.ones(keys.shape, dtype=torch.bool, device=codes.device)
     else:
         qual = None if qual is None else qual.reshape(-1, width)
         packed2, badbits, w4 = pack_rows(rows, k, qual, quality_threshold)
-        keys = encode_dense(packed2, badbits, k, w4).view(-1, w4)[:, :w]
-    return tuple(t.reshape(*lead, w) for t in split_keys(keys, k))
+        keys, poison = encode_dense(packed2, badbits, k, w4, codes=True)
+        keys, valid = keys.view(-1, w4)[:, :w], valid_of(poison, w)
+    return tuple(t.reshape(*lead, w) for t in split_keys(keys, k, valid))
 
 
 def split64(codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -42,25 +42,31 @@ def unpack_2bit(packed: torch.Tensor, n_bases: int) -> torch.Tensor:
     return ((b[:, None] >> shifts) & 3).reshape(-1)[:n_bases]
 
 
-def window_keys_plain(
+def window_codes_plain(
     bases: torch.Tensor, bad: torch.Tensor, k: int, n_windows: int
-) -> torch.Tensor:
-    """Canonical keys of the first ``n_windows`` windows along the last axis.
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Canonical keys of the first ``n_windows`` windows along the last
+    axis, with ``krust_tpu``'s substitution for a bad base, and which
+    windows hold one.
 
     ``bases`` int64 [..., >= n_windows + k - 1] codes 0..3, ``bad`` bool of
     the same shape; leading axes (the rows of a dense batch) are
-    independent. A window holding a bad base gets the sentinel key. An
-    int64 k-step shift/or over all windows; int64 arithmetic throughout
-    (CPU torch has no ``<<`` or ``minimum`` on unsigned dtypes).
+    independent. A bad base is code 0 on the forward strand (as its entry
+    in ``bases`` must be) and 0 on the complement strand too, not 3 - 0
+    (``krust_tpu/ops/codec.py:encode_blocks``). Returns (keys, poisoned):
+    the biased keys of every window, no sentinel, and a bool plane, True
+    where a window holds a bad base. An int64 k-step shift/or over all
+    windows; int64 arithmetic throughout (CPU torch has no ``<<`` or
+    ``minimum`` on unsigned dtypes).
     """
     fwd = torch.zeros(
         bases.shape[:-1] + (n_windows,), dtype=torch.int64, device=bases.device
     )
     rc = torch.zeros_like(fwd)
+    comp = torch.where(bad, 0, 3 - bases)
     for i in range(k):
-        b = bases[..., i : i + n_windows]
-        fwd = (fwd << 2) | b
-        rc = rc | ((3 - b) << (2 * i))
+        fwd = (fwd << 2) | bases[..., i : i + n_windows]
+        rc = rc | (comp[..., i : i + n_windows] << (2 * i))
     cb = torch.nn.functional.pad(bad.to(torch.int32).cumsum(-1), (1, 0))
     poisoned = (cb[..., k : k + n_windows] - cb[..., :n_windows]) > 0
     dt = key_dtype(k)
@@ -69,8 +75,16 @@ def window_keys_plain(
     else:  # bit 63 may be set (k = 32): compare biased
         bias = torch.iinfo(torch.int64).min
         keys = torch.minimum(fwd ^ bias, rc ^ bias)
-    keys = keys.to(dt)
-    return keys.masked_fill_(poisoned, sentinel(dt))
+    return keys.to(dt), poisoned
+
+
+def window_keys_plain(
+    bases: torch.Tensor, bad: torch.Tensor, k: int, n_windows: int
+) -> torch.Tensor:
+    """The keys of :func:`window_codes_plain` with the sentinel key where a
+    window holds a bad base: the counting codecs' keys."""
+    keys, poisoned = window_codes_plain(bases, bad, k, n_windows)
+    return keys.masked_fill_(poisoned, sentinel(keys.dtype))
 
 
 def encode_windows_plain(

@@ -31,20 +31,19 @@ def sentinel(dtype: torch.dtype) -> int:
     return torch.iinfo(dtype).max
 
 
-def split_keys(keys: torch.Tensor, k: int):
-    """Biased keys -> ``krust_tpu``'s (hi, lo, valid) form: the code's
-    uint32 halves (``hi`` 0 for k <= 16) and a bool plane, False at the
-    sentinel, where ``hi`` = ``lo`` = 0. int64 arithmetic on any device
-    (CUDA torch has no uint32 arithmetic); uint32 at the last step."""
-    valid = keys != sentinel(keys.dtype)
+def split_keys(keys: torch.Tensor, k: int, valid: torch.Tensor):
+    """Keys that are codes on every window (K4's code form) and their bool
+    validity plane -> ``krust_tpu``'s (hi, lo, valid) form: the code's
+    uint32 halves (``hi`` 0 for k <= 16) and ``valid`` as it is. int64
+    arithmetic on any device (CUDA torch has no uint32 arithmetic); uint32
+    at the last step."""
     if k <= 16:  # int32 key = code - 2^31
         lo = keys.to(torch.int64) + (1 << 31)
         hi = torch.zeros_like(lo)
     else:  # int64 key = code ^ 2^63: the code's bits, bit 63 included
         code = keys ^ torch.iinfo(torch.int64).min
         hi, lo = (code >> 32) & 0xFFFFFFFF, code & 0xFFFFFFFF
-    return (hi.masked_fill_(~valid, 0).to(torch.uint32),
-            lo.masked_fill_(~valid, 0).to(torch.uint32), valid)
+    return hi.to(torch.uint32), lo.to(torch.uint32), valid
 
 
 def _np_bias(k: int):

@@ -47,7 +47,7 @@ from ..utils.config import default_device
 from ..utils.numutil import round_pow2 as _round_pow2
 from ..utils.tracing import span, trace_event
 from .count import merge_runs
-from .keys import key_dtype, keys_to_codes
+from .keys import key_dtype, keys_to_codes, sentinel
 from .merge import merge_sorted
 from .rle import rle_compact
 
@@ -264,11 +264,14 @@ class DeviceTable:
         self._table = _part(m_keys, m_cnt, n)
 
     def _concat(self):
-        """The merge input: every pending part, then the table."""
+        """The merge input: every pending part, then the table. A part's
+        sentinel keys weigh 0, as ``krust_tpu``'s invalid windows do, so
+        that ``merge_runs`` takes them for padding (a sentinel key with a
+        weight would be the all-ones code to it)."""
         keys = [p[0] for p in self._parts]
         cnt = [
-            torch.ones(p[0].numel(), dtype=torch.int32, device=p[0].device)
-            if p[1] is None else p[1].to(torch.int32)
+            (p[0] != sentinel(p[0].dtype)).to(torch.int32) if p[1] is None
+            else torch.where(p[0] == sentinel(p[0].dtype), 0, p[1].to(torch.int32))
             for p in self._parts
         ]
         if self._table is not None:

@@ -12,9 +12,11 @@ of their host's GPUs; either way, one table slot per device.
    :class:`ShardedTable`. A process deals its batches to its slots in
    turn. Merges are local; nothing crosses devices while batches stream.
 2. **One hash-sharded exchange per epoch** (:func:`_exchange`, one path for
-   every form of mesh). Slot l of rank r is global slot ``r * L + l``; each
-   slot's distinct (key, count) entries are ordered by owner (a
-   multiplicative hash of the key mod the mesh's slots) and cut at the
+   every form of mesh). Slot l of rank r is global slot ``r * L + l``,
+   ``krust_tpu``'s device order (its mesh takes ``jax.devices()`` in
+   order, process by process); each slot's distinct (key, count) entries
+   are ordered by owner (``krust_tpu``'s multiplicative hash of the code
+   mod the mesh's slots, so a slot's shard is the chip's) and cut at the
    owners' counts. Pieces between a process's slots move by ``Tensor.to``
    (a peer copy between cards); pieces for other ranks cross with uneven
    ``all_to_all_single`` calls on the rank's first device, one round per
@@ -83,12 +85,16 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def _owner_of(keys: torch.Tensor, n: int) -> torch.Tensor:
-    """Owner slot of each biased key: a multiplicative hash of its 32-bit
-    halves, mod n (int64)."""
-    k = keys.to(torch.int64)
-    h = _mul32(k & _M32, _MIX2)
+    """Owner slot of each biased key, ``krust_tpu``'s owner chip: the
+    multiplicative hash of the code's 32-bit halves (``hi``, ``lo``: ``key
+    ^ 2^63`` split for int64 keys, ``lo`` = ``key + 2^31`` and ``hi`` = 0
+    for int32 keys), mod n (int64). Global slot g owns what chip g of
+    ``krust_tpu``'s mesh owns, for every n."""
     if keys.dtype == torch.int64:
-        h = h ^ _mul32((k >> 32) & _M32, _MIX1)
+        code = keys ^ torch.iinfo(torch.int64).min
+        h = _mul32(code & _M32, _MIX2) ^ _mul32((code >> 32) & _M32, _MIX1)
+    else:
+        h = _mul32(keys.to(torch.int64) + (1 << 31), _MIX2)
     h = h ^ (h >> 16)
     h = _mul32(h, _MIX1)
     h = h ^ (h >> 13)

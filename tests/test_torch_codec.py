@@ -13,10 +13,11 @@ The rest of ``codec.py``'s surface against ``krust_tpu.ops.codec``:
 ``encode_blocks`` (its plain version, and the packed route the CUDA path
 takes, pack -> ``encode_dense`` -> split, here on ``encode_dense``'s plain
 version) on clean, dirty (about 7% bad) and quality-masked rows (threshold
-53, ``"5"``, Q20) at k in {1, 2, 15, 16, 17, 21, 31, 32}: ``valid`` and
-every valid window's ``hi``/``lo`` equal bit for bit, ``hi`` = ``lo`` = 0
-where a window is not valid (the stated difference); ``unpack_2bit``;
-``split64`` / ``combine64``.
+53, ``"5"``, Q20) at k in {1, 2, 15, 16, 17, 21, 31, 32}: ``hi``, ``lo``
+and ``valid`` equal bit for bit on every window, a window that holds a bad
+base included (``krust_tpu``'s code of the window with each bad base taken
+as 0 on both strands); K4's code form (``encode_dense(..., codes=True)``)
+against its counting form; ``unpack_2bit``; ``split64`` / ``combine64``.
 
 The CUDA kernel against this plain version: tests/test_torch_cuda.py.
 """
@@ -172,9 +173,8 @@ def _check_blocks(got, exp, k):
     assert hi.shape == lo.shape == valid.shape == (BLOCK_ROWS, BLOCK_W)
     hi, lo, valid = hi.numpy(), lo.numpy(), valid.numpy()
     np.testing.assert_array_equal(valid, e_valid)
-    np.testing.assert_array_equal(hi[valid], e_hi[e_valid])
-    np.testing.assert_array_equal(lo[valid], e_lo[e_valid])
-    assert not hi[~valid].any() and not lo[~valid].any()
+    np.testing.assert_array_equal(hi, e_hi)  # every window, invalid ones too
+    np.testing.assert_array_equal(lo, e_lo)
     if k <= 16:
         assert not hi.any()
 
@@ -190,6 +190,32 @@ def test_encode_blocks_matches_jax(k, kind):
     _check_blocks(port_codec._encode_packed(*args), exp, k)
     if kind != "clean":
         assert not np.asarray(exp[2]).all()
+
+
+@pytest.mark.parametrize("w", [64, 37 + 3, 8])
+@pytest.mark.parametrize("k", [1, 16, 17, 32])
+def test_code_form_against_counting_form(k, w):
+    """K4's two forms on the same dense rows (about 10% bad bits, an
+    all-bad row): the code form's keys where its poison bits are clear are
+    the counting form's keys, the counting form's sentinels lie where they
+    are set, and its poison words mark the windows past W as poisoned."""
+    rng = np.random.default_rng(k * 100 + w)
+    rows, width = 5, w + k - 1
+    p4, p8 = -(-width // 4), -(-width // 8)
+    packed2 = torch.from_numpy(rng.integers(0, 256, (rows, p4), dtype=np.uint8))
+    bad = rng.random((rows, 8 * p8)) < 0.1
+    bad[2] = True
+    badbits = torch.from_numpy(np.packbits(bad, axis=1))
+    keys, poison = encode_dense(packed2, badbits, k, w, codes=True)
+    counted = encode_dense(packed2, badbits, k, w)
+    assert poison.dtype == torch.int32 and poison.shape == (rows, -(-w // 32))
+    valid = port_codec.valid_of(poison, w).reshape(-1)
+    assert torch.equal(keys[valid], counted[valid])
+    assert torch.all(counted[~valid] == sentinel(key_dtype(k)))
+    assert not valid.view(rows, w)[2].any()
+    assert torch.equal(port_codec.poison_words(~valid.view(rows, w)), poison)
+    if w % 32:  # bits past W are set
+        assert torch.all((poison[:, -1] >> (w % 32)) == -1)
 
 
 def test_encode_blocks_quality_needs_both():
@@ -225,14 +251,24 @@ def test_unpack_2bit_matches_jax(width):
 @pytest.mark.parametrize("k", [5, 21])
 def test_pack_rows_round_trips_through_unpack(k):
     """The CUDA route's packer: bases at 4 a byte and bad bits at 8 a byte
-    that unpack to the rows, every padding base bad."""
+    that unpack to the rows, every padding base bad; every bad base (an
+    invalid code, an ACGT base below the quality threshold) and the
+    padding packed as 2-bit 0, ``krust_tpu``'s substitution."""
     rng = np.random.default_rng(k)
     codes = torch.from_numpy(rng.integers(0, 6, size=(4, 30 + k - 1), dtype=np.uint8))
+    qual = torch.from_numpy(np.where(rng.random(codes.shape) < 0.2, 40, 73).astype(np.uint8))
     packed2, badbits, w4 = port_codec.pack_rows(codes, k)
     assert w4 == 32
     back = port_codec.unpack_2bit(packed2, badbits, w4 + k - 1)
     assert torch.equal(back[:, : codes.shape[1]], torch.where(codes < 4, codes, 4))
     assert torch.all(back[:, codes.shape[1]:] == 4)
+    packed2, badbits, _ = port_codec.pack_rows(codes, k, qual, Q20)
+    good = (codes < 4) & (qual >= Q20)
+    raw = port_codec.unpack_2bit(packed2, torch.zeros_like(badbits), w4 + k - 1)
+    assert torch.equal(raw[:, : codes.shape[1]], torch.where(good, codes, 0))
+    assert torch.all(raw[:, codes.shape[1]:] == 0)
+    back = port_codec.unpack_2bit(packed2, badbits, w4 + k - 1)
+    assert torch.equal(back[:, : codes.shape[1]] < 4, good)
 
 
 def test_split64_combine64_match_jax():

@@ -6,7 +6,9 @@ five JAX functions (on the CPU) and its counterpart in
 version runs underneath). What must agree, exactly (integers: tolerance
 0): each function's table, the entries with count > 0 in key order, and
 ``n_unique``. Padding differs by design (zero-scrubbed keys there, sentinel
-keys here) and is not compared.
+keys here) and is not compared. The all-ones code, the port's sentinel
+key, is a key to both packages where it is valid: merge_weighted and
+count_unique at every width, count_runs and merge_runs at k = 32.
 """
 
 import jax
@@ -16,7 +18,7 @@ import torch
 
 from krust_tpu.ops import count as jax_count
 from krust_tpu_torch.ops import count as port_count
-from krust_tpu_torch.ops.keys import parts_from_numpy, parts_to_numpy, sentinel
+from krust_tpu_torch.ops.keys import keys_to_codes, parts_from_numpy, sentinel
 
 KS = [5, 16, 17, 31, 32]
 CASES = ["random", "zero_padding", "all_invalid", "empty", "one_key", "zero_sum_run"]
@@ -72,9 +74,11 @@ def _table(hi, lo, cnt):
 
 
 def _assert_same_table(port_out, jax_out, k):
-    """The port's (keys, cnt[, n]) against krust_tpu's (hi, lo, cnt[, n])."""
-    p_hi, p_lo, p_cnt = parts_to_numpy(port_out[0], port_out[1], k, zero_is_padding=True)
-    got, exp = _table(p_hi, p_lo, p_cnt), _table(*jax_out[:3])
+    """The port's (keys, cnt[, n]) against krust_tpu's (hi, lo, cnt[, n]);
+    a port entry under the sentinel key with a count is the all-ones code."""
+    codes = keys_to_codes(port_out[0].numpy(), k)
+    cnt = port_out[1].numpy().view(np.uint32)
+    got, exp = (codes[cnt > 0], cnt[cnt > 0]), _table(*jax_out[:3])
     np.testing.assert_array_equal(got[0], exp[0])
     np.testing.assert_array_equal(got[1], exp[1])
     assert np.all(np.diff(got[0].astype(object)) > 0)  # key order, distinct
@@ -152,9 +156,9 @@ def test_merge_runs_presorted_matches_jax(k, case):
 
 
 def test_all_t_32mers_count_as_all_a():
-    """At k = 32 ``krust_tpu`` counts the all-ones code as a real key and the
-    port takes it for the sentinel. No input produces it: a stream of T's
-    canonicalizes to all-A's through both packages."""
+    """At k = 32 both packages count the all-ones code as a real key where
+    it is valid, yet no input produces it: a stream of T's canonicalizes to
+    all-A's through both packages."""
     from krust_tpu.io.reader import ParsedStreams as JaxStreams
     from krust_tpu.models.engines import BatchEngine as JaxEngine
     from krust_tpu.utils.config import EngineConfig as JaxConfig
@@ -176,12 +180,67 @@ def test_all_t_32mers_count_as_all_a():
 
 
 def test_all_ones_key_is_the_sentinel_at_k32():
-    """The stated difference: the all-ones code with a weight is a key to
-    ``krust_tpu.merge_runs`` at k = 32 and padding to the port."""
-    hi = np.array([0, 0xFFFFFFFF, 0xFFFFFFFF], np.uint32)
-    lo = np.array([7, 0xFFFFFFFF, 0xFFFFFFFE], np.uint32)
-    weight = np.array([2, 3, 4], np.uint32)
-    assert int(jax_count.merge_runs(hi, lo, weight, 32)[3]) == 3
-    keys, cnt = parts_from_numpy(hi, lo, weight, 32)
-    u_keys, u_cnt, n = port_count.merge_runs(keys, cnt)
-    assert int(n.item()) == 2 and u_cnt.tolist() == [2, 4, 0]
+    """The port's sentinel key is the all-ones code, which ``krust_tpu``
+    counts at k = 32 where it is valid: merge_weighted, count_unique,
+    count_runs and merge_runs (weight > 0 for valid) take it for a key in
+    both packages, with weights 0 and above 0, and last in key order."""
+    ones = np.uint32(0xFFFFFFFF)
+    hi = np.array([0, ones, ones, ones, 5, ones, 0x80000000], np.uint32)
+    lo = np.array([7, ones, 0xFFFFFFFE, ones, 9, ones, 3], np.uint32)
+    valid = np.array([True, True, True, False, True, True, True])
+    for all_ones_weight in (0, 3):
+        weight = np.array([2, all_ones_weight, 4, 6, 1, all_ones_weight, 8], np.uint32)
+        keys, cnt = parts_from_numpy(hi, lo, weight, 32)
+        v = torch.from_numpy(valid)
+        for got, exp in (
+            (port_count.merge_weighted(keys, cnt, v),
+             jax_count.merge_weighted(hi, lo, weight, valid)),
+            (port_count.count_unique(keys, v), jax_count.count_unique(hi, lo, valid)),
+            (port_count.count_runs(keys, v), jax_count.count_runs(hi, lo, valid, 32)),
+            (port_count.merge_runs(keys, cnt), jax_count.merge_runs(hi, lo, weight, 32)),
+        ):
+            _assert_same_table(got, exp, 32)
+        u_keys, u_cnt, n = port_count.merge_weighted(keys, cnt, v)
+        assert int(n.item()) == 5 and u_keys[4] == sentinel(torch.int64)
+        assert int(u_cnt[4]) == 2 * all_ones_weight  # a zero sum keeps its slot
+        # merge_runs reads no valid: the third all-ones entry's weight 6 counts
+        assert int(port_count.merge_runs(keys, cnt)[1][4]) == 6 + 2 * all_ones_weight
+
+
+#: (function, k, weight of the all-ones entries): the weighted functions
+#: with zero and positive weights there, the unweighted ones once, at both
+#: key widths whose sentinel is a code (k = 16: int32, k = 32: int64)
+ALL_ONES_CASES = [
+    *[(fn, k, w) for fn in ("merge_weighted", "merge_runs") for k in (16, 32)
+      for w in ("zero", "positive")],
+    *[(fn, k, None) for fn in ("count_unique", "count_runs") for k in (16, 32)],
+]
+
+
+@pytest.mark.parametrize("fn,k,weights", ALL_ONES_CASES,
+                         ids=[f"{f}-k{k}-{w or 'unit'}" for f, k, w in ALL_ONES_CASES])
+def test_all_ones_code_matches_jax(fn, k, weights):
+    """Random keys with the all-ones code mixed in, some of it invalid:
+    every function's table and ``n_unique`` equal ``krust_tpu``'s (at k =
+    16 ``krust_tpu``'s count_runs and merge_runs drop it, as the port's
+    do)."""
+    rng = np.random.default_rng(k + len(fn))
+    hi, lo = _codes(rng, 500, k)
+    ones = rng.random(500) < 0.1
+    hi[ones], lo[ones] = (0xFFFFFFFF if k == 32 else 0), 0xFFFFFFFF
+    weight = rng.integers(1, 60, 500).astype(np.uint32)
+    if weights == "zero":
+        weight[ones] = 0
+    valid = rng.random(500) < 0.8
+    keys, cnt = parts_from_numpy(hi, lo, weight, k)
+    v = torch.from_numpy(valid)
+    if fn == "merge_weighted":
+        got, exp = (port_count.merge_weighted(keys, cnt, v),
+                    jax_count.merge_weighted(hi, lo, weight, valid))
+    elif fn == "merge_runs":
+        got, exp = port_count.merge_runs(keys, cnt), jax_count.merge_runs(hi, lo, weight, k)
+    elif fn == "count_unique":
+        got, exp = port_count.count_unique(keys, v), jax_count.count_unique(hi, lo, valid)
+    else:
+        got, exp = port_count.count_runs(keys, v), jax_count.count_runs(hi, lo, valid, k)
+    _assert_same_table(got, exp, k)

@@ -31,7 +31,7 @@ from krust_tpu_torch.ops.rle import rle_compact, rle_compact_plain
 from krust_tpu_torch.ops import table as table_mod
 from krust_tpu_torch.ops.table import DeviceTable
 from krust_tpu_torch.parallel.mesh import init_distributed, make_mesh
-from krust_tpu_torch.parallel.sharded import count_sharded
+from krust_tpu_torch.parallel.sharded import _owner_of, count_sharded
 from krust_tpu_torch.utils import tracing
 from krust_tpu_torch.utils.config import EngineConfig
 
@@ -255,15 +255,19 @@ def test_dense_codec_kernel_matches_plain(dev, k, w):
     bb = torch.from_numpy(batch.badbits).to(dev)
     got = encode_dense(p2, bb, k, w)
     assert torch.equal(got, encode_dense_plain(p2, bb, k, w))
+    for g, e in zip(encode_dense(p2, bb, k, w, codes=True),
+                    encode_dense_plain(p2, bb, k, w, codes=True)):
+        assert torch.equal(g, e)  # the code form: codes and poison words
 
 
 @pytest.mark.parametrize("quality", [False, True], ids=["codes", "quality"])
 @pytest.mark.parametrize("k", range(1, 33))
 def test_encode_blocks_on_cuda_matches_plain(dev, k, quality):
-    """``encode_blocks`` on the card (pack, K4 once, split) against its
-    plain version on the same rows: 7% bad bases, with quality bytes 5%
-    below the threshold 53 (Q20), 37 windows a row (widened to 40 for K4
-    and sliced back)."""
+    """``encode_blocks`` on the card (pack, K4's code form once, split)
+    against its plain version on the same rows, ``hi``, ``lo`` and
+    ``valid`` on every window, invalid ones included: 7% bad bases, with
+    quality bytes 5% below the threshold 53 (Q20), 37 windows a row
+    (widened to 40 for K4 and sliced back)."""
     rng = np.random.default_rng(77 + k + 100 * quality)
     shape = (33, 37 + k - 1)
     codes = rng.integers(0, 4, size=shape, dtype=np.uint8)
@@ -315,9 +319,10 @@ def test_dense_codec_tile_matches_plain(dev, w, k, rows):
     and at a width that is no multiple of 32 (the direct-store path): no bad
     bit, one on each row's first base, on its last window's first base and
     on its last halo base, and 7% bad bits with an all-bad row between good
-    rows; each on tensors that start 0..15 bytes off a 16-byte boundary (the
-    rows' odd strides give every offset) and end at their buffer's last
-    byte."""
+    rows; both forms (the counting form's keys, the code form's codes and
+    poison words); each on tensors that start 0..15 bytes off a 16-byte
+    boundary (the rows' odd strides give every offset) and end at their
+    buffer's last byte."""
     rng = np.random.default_rng(1000 * w + 10 * k + rows)
     width = w + k - 1
     p4, p8 = -(-width // 4), -(-width // 8)
@@ -336,6 +341,9 @@ def test_dense_codec_tile_matches_plain(dev, w, k, rows):
         got = encode_dense(p2, bb, k, w)
         exp = encode_dense_plain(p2, bb, k, w)
         assert torch.equal(got, exp), case
+        for g, e in zip(encode_dense(p2, bb, k, w, codes=True),
+                        encode_dense_plain(p2, bb, k, w, codes=True)):
+            assert torch.equal(g, e), case  # the code form
         if case in ("first", "last_window", "last_halo"):  # its windows only
             n_bad = (got.view(rows, w) == torch.iinfo(got.dtype).max).sum(1)
             assert n_bad.unique().tolist() == [min(k, w) if case == "last_window" else 1]
@@ -442,7 +450,8 @@ def _weighted_keys(rng, n, dtype, zero_share):
 def test_count_functions_on_cuda_match_cpu(dev, dtype, n):
     """The five ``ops/count`` functions on the card (``torch.sort`` there,
     K2 launched) against the same call on CPU tensors (K2's plain version):
-    zero weights, sentinels and runs whose weights are all zero."""
+    zero weights, sentinels (the all-ones code where valid) and runs whose
+    weights are all zero."""
     rng = np.random.default_rng(n + (dtype == torch.int32))
     keys, weight = _weighted_keys(rng, n, dtype, 0.3)
     valid = torch.from_numpy(rng.random(n) < 0.8)
@@ -497,6 +506,21 @@ def test_lsm_engine_on_cuda_matches_numpy(dev, monkeypatch, k, dirty):
     np.testing.assert_array_equal(got.counts, exp.counts)
     assert codec.launches > before[codec] and rle_compact.launches > before[rle_compact] + 1
     assert merge_sorted.launches == before[merge_sorted]
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_owner_of_on_cuda_matches_cpu(dev, dtype):
+    """The exchange's owner function on the card equals its CPU result at
+    every n of the tests (2^20 random keys, the key space's ends)."""
+    info = torch.iinfo(dtype)
+    g = torch.Generator().manual_seed(5)
+    keys = torch.cat([torch.randint(info.min, info.max, (1 << 20,), generator=g, dtype=dtype),
+                      torch.tensor([info.min, info.min + 1, info.max - 1, info.max],
+                                   dtype=dtype)])
+    for n in (2, 3, 4, 6, 8, 16):
+        got = _owner_of(keys.to(dev), n)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), _owner_of(keys, n)), n
 
 
 def test_count_functions_raise_on_mixed_devices(dev):

@@ -28,6 +28,8 @@ import torch
 
 import krust_tpu
 import krust_tpu.api as jax_api
+import krust_tpu.parallel.sharded as jax_sharded
+import krust_tpu.utils.tracing as jax_tracing
 import krust_tpu_torch.api as port_api
 from krust_tpu.io.reader import ParsedStreams as JaxStreams
 from krust_tpu.parallel.mesh import make_mesh as jax_make_mesh
@@ -42,6 +44,7 @@ from krust_tpu_torch.models.engines import NumpyEngine
 from krust_tpu_torch.ops import codec as codec_mod
 from krust_tpu_torch.ops import fused_codec as fused_mod
 from krust_tpu_torch.ops import table as table_mod
+from krust_tpu_torch.ops.keys import keys_to_codes
 from krust_tpu_torch.parallel import sharded as sharded_mod
 from krust_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh
 from krust_tpu_torch.parallel.sharded import (
@@ -185,6 +188,81 @@ def test_local_mesh_equals_jax_mesh(monkeypatch, route, trace, n, k, kind, epoch
         assert len(sizes["sizes"]) == n and sum(sizes["sizes"]) == pulled["entries"]
     for ex in trace["sharded_exchange"]:  # slots that share a device send no wire bytes
         assert ex["devices"] == n and ex["wire_bytes"] == 0 and ex["sent_bytes"] > 0
+
+
+#: (k, input class) of the per-shard cases: both key widths, both routes
+SHARD_CASES = [(15, "clean"), (21, "n-rich"), (32, "quality")]
+
+
+def _jax_shards(n, codes, qual, min_quality, k):
+    """``krust_tpu``'s count on its n-device mesh, shard by shard: chip g's
+    (codes, counts) of every exchange, joined over the exchanges, and the
+    ``shard_sizes`` events."""
+    chips = [[] for _ in range(n)]
+    sizes = []
+    real = jax_sharded.ShardedTable.exchange
+
+    def exchange(self, *a, **kw):
+        out = real(self, *a, **kw)
+        if out is not None:
+            m_hi, m_lo, m_cnt, n_m = (np.asarray(x) for x in out)
+            for g in range(n):
+                m = int(n_m[g])
+                codes = m_hi[g, :m].astype(np.uint64) << np.uint64(32) | m_lo[g, :m]
+                chips[g].append((codes, m_cnt[g, :m].astype(np.uint64)))
+        return out
+
+    def collect(kind, name, fields):
+        if name == "shard_sizes":
+            sizes.append(fields["sizes"])
+
+    jax_tracing.add_collector(collect)
+    jax_sharded.ShardedTable.exchange = exchange
+    try:
+        jax_count_sharded(JaxStreams(codes, qual, 1, codes.shape[0]), k, min_quality,
+                          mesh=jax_make_mesh(n), config=JaxConfig(**JAX_CFG))
+    finally:
+        jax_sharded.ShardedTable.exchange = real
+        jax_tracing.remove_collector(collect)
+    return [_joined(c) for c in chips], sizes
+
+
+def _joined(pieces):
+    """(codes, counts) pieces of one shard, a key's counts summed, sorted."""
+    table: dict = {}
+    for codes, counts in pieces:
+        for c, n in zip(codes.tolist(), counts.tolist()):
+            table[c] = table.get(c, 0) + n
+    return sorted(table.items())
+
+
+@pytest.mark.parametrize("n", [3, 8])
+@pytest.mark.parametrize("k,kind", SHARD_CASES, ids=[f"k{k}-{kind}" for k, kind in SHARD_CASES])
+def test_each_slot_holds_its_jax_chips_shard(monkeypatch, trace, n, k, kind):
+    """Slot g of the port's n CPU slots ends with the keys (and counts)
+    that chip g of ``krust_tpu``'s n-device mesh ends with, and the sorted
+    shard sizes are equal: the owner is ``krust_tpu``'s at every n, not
+    only where n divides 4."""
+    codes, qual, min_quality = _stream(kind, k, 7000 + 100 * n + k)
+    exp, exp_sizes = _jax_shards(n, codes, qual, min_quality, k)
+    slots = [[] for _ in range(n)]
+    real = sharded_mod._exchange
+
+    def exchange(parts, mesh, k_):
+        shards = real(parts, mesh, k_)
+        for g, (keys, cnt, m) in enumerate(shards):
+            slots[g].append((keys_to_codes(keys[:m].numpy(), k),
+                             cnt[:m].numpy().astype(np.uint64)))
+        return shards
+
+    monkeypatch.setattr(sharded_mod, "_exchange", exchange)
+    got = count_sharded(ParsedStreams(codes, qual, 1, codes.shape[0]), k, min_quality,
+                        mesh=_cpu_mesh(n), config=_cfg())
+    assert got.distinct > 0
+    for g in range(n):
+        assert _joined(slots[g]) == exp[g], f"slot {g} != chip {g}"
+    (sizes,) = [e["sizes"] for e in trace["shard_sizes"]]
+    assert exp_sizes == [sorted(sizes)]
 
 
 def test_the_geometry_ends_on_a_short_group():

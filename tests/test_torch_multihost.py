@@ -10,8 +10,10 @@ and the unequal, skew and window-limit cases of
 disjoint, each rank's keys owned by its own global slots, their union
 equal to the oracle and to ``krust_tpu``'s count of all records on its
 8-device XLA-CPU mesh; each exchange merges with K3 and K2 and calls no
-``merge_runs``. In one process, the exchange of several slots sends
-nothing between processes. Integer work: tables equal exactly.
+``merge_runs``. Two ranks of 3 slots each hold, rank by rank, the entries
+of ``krust_tpu``'s table whose ``krust_tpu`` owner among 6 chips is one of
+the rank's global slots. In one process, the exchange of several slots
+sends nothing between processes. Integer work: tables equal exactly.
 """
 
 import json
@@ -24,6 +26,7 @@ import torch
 
 from krust_tpu.io.reader import streams_from_sequences as jax_streams
 from krust_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from krust_tpu.parallel.sharded import _owner_of as jax_owner_of
 from krust_tpu.parallel.sharded import count_sharded as jax_count_sharded
 from krust_tpu.utils.config import EngineConfig as JaxConfig
 from krust_tpu_torch.io.reader import streams_from_sequences
@@ -124,6 +127,35 @@ def test_two_ranks_of_several_slots_on_gloo(ranks, slots, case):
                           for r in on)
     if case.get("window_limit"):  # the limit forces exchanges while rank 1 runs dry
         assert min(len(json.loads(str(s[4]))) for s in shards) >= 2
+
+
+#: test_multihost.py's two inputs on 2 ranks of 3 slots: 6 slots, an n
+#: that does not divide 4
+THREE = [c for c in CASES if c["name"].startswith("multihost")]
+
+
+@pytest.fixture(scope="module")
+def three_slot_ranks(tmp_path_factory):
+    """{case name: [(codes, counts, flat, dense, exchanges) of each rank]}
+    of the two ranks of 3 slots, one spawn."""
+    return _spawn(tmp_path_factory.mktemp("slots3"), WORLD, THREE, 3)
+
+
+@pytest.mark.parametrize("case", THREE, ids=[c["name"] for c in THREE])
+def test_two_ranks_of_three_slots_hold_jax_owners(three_slot_ranks, case):
+    """Rank r's table is ``krust_tpu``'s table cut to the keys whose
+    ``krust_tpu`` owner among 6 chips is one of rank r's global slots, 3r
+    .. 3r + 2: each rank returns what ``krust_tpu``'s process of those
+    chips returns."""
+    exp = _jax_table(case)
+    hi = (exp.codes >> np.uint64(32)).astype(np.uint32)
+    owner = np.asarray(jax_owner_of(hi, exp.codes.astype(np.uint32), WORLD * 3))
+    for r, (codes, counts, *_rest) in enumerate(three_slot_ranks[case["name"]]):
+        mine = owner // 3 == r
+        order = np.argsort(codes)
+        np.testing.assert_array_equal(codes[order], exp.codes[mine])
+        np.testing.assert_array_equal(counts[order], exp.counts[mine])
+        assert mine.any()
 
 
 def test_ranks_of_unequal_slots_raise_alike(ranks):

@@ -26,6 +26,7 @@ import krust_tpu.api as jax_api
 import krust_tpu_torch
 import krust_tpu_torch.api as port_api
 from krust_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from krust_tpu.parallel.sharded import _owner_of as jax_owner_of
 from krust_tpu.parallel.sharded import count_sharded as jax_count_sharded
 from krust_tpu_torch.builder import KmerCounter
 from krust_tpu_torch.io import packer
@@ -35,7 +36,7 @@ from krust_tpu_torch.models.engines import NumpyEngine
 from krust_tpu_torch.ops import codec as codec_mod
 from krust_tpu_torch.ops import fused_codec as fused_mod
 from krust_tpu_torch.ops import table as table_mod
-from krust_tpu_torch.ops.keys import keys_to_codes
+from krust_tpu_torch.ops.keys import codes_to_keys, keys_to_codes
 from krust_tpu_torch.parallel import mesh as mesh_mod
 from krust_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from krust_tpu_torch.parallel.sharded import (
@@ -251,6 +252,24 @@ def test_owner_of_spreads_keys(dtype, keys):
     assert owner.dtype == torch.int64 and int(owner.min()) >= 0 and int(owner.max()) < 4
     per = torch.bincount(owner, minlength=4)
     assert torch.all((per - (1 << 14)).abs() < (1 << 14) // 10), per
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 6, 8, 16])
+@pytest.mark.parametrize("k", [15, 16, 21, 31, 32])
+def test_owner_of_matches_jax(k, n):
+    """The owner of each key is ``krust_tpu``'s owner chip of its code, at
+    every n (the hash of the code's halves, not of the biased key's):
+    2^14 random codes, the top of the code space (bit 63 set at k = 32)
+    and the ends of it."""
+    rng = np.random.default_rng(1000 * k + n)
+    top = (1 << (2 * k)) - 1
+    codes = np.concatenate([
+        rng.integers(0, top, 1 << 14, dtype=np.uint64, endpoint=True),
+        np.array([0, 1, top - 1, top, top >> 1, (top >> 1) + 1], np.uint64),
+    ])
+    hi, lo = (codes >> np.uint64(32)).astype(np.uint32), codes.astype(np.uint32)
+    got = _owner_of(torch.from_numpy(codes_to_keys(codes, k)), n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_owner_of(hi, lo, n)))
 
 
 def test_no_cpu_fallback(monkeypatch):

@@ -25,7 +25,9 @@ import sys
 #: fields of a phase-2 line that are measurements, not the row's shape
 _MEASURED = {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_bytes",
              "bound_ops", "max_abs_err", "equal", "gpu", "n_unique", "invalid_positions",
-             "launches", "library_call", "phase", "k4_ms", "k4_bound_ms", "valid_share"}
+             "launches", "library_call", "phase", "k4_ms", "k4_bound_ms", "valid_share",
+             "invalid_windows_lo_nonzero", "k4_count_form_ms", "k4_count_form_bound_ms",
+             "code_form_equal"}
 #: fields that tell a phase's counting runs apart (a list or a dict is no key)
 _CASE = ("phase", "case", "table", "process_group", "mesh", "entry", "k", "bases",
          "min_quality")
