@@ -1,6 +1,6 @@
 """Smoke test of krust_tpu_torch on one NVIDIA GPU: kernels, then the counting paths.
 
-    python3 chip_smoke.py [--seed N] [--phases 1,2,3,4,5,6,7,8,9,10]
+    python3 chip_smoke.py [--seed N] [--phases 1,2,3,4,5,6,7,8,9,10,11]
 
 Needs a CUDA device and ``nvcc`` (the kernels build from
 ``krust_tpu_torch/csrc`` at first use, one nvcc per source, in parallel).
@@ -123,12 +123,20 @@ Phases, printing JSON lines:
    (kept from phase 4, else made anew) through
    ``api.count_kmers_streaming_packed`` in a child: 256 MiB chunks that
    cross an epoch flush, so K1, K2 and K3 must launch.
+11. krust_tpu's own behaviour suites against the port
+   (``tests/torch_reference_suite.py``: the ``tests/test_torch_ref_*.py``
+   loaders but the CLI's, ``PHASE11_LEFT_OUT``) in a child process, with
+   ``--noconftest`` (conftest.py imports JAX), ``-m 'not slow'`` and
+   KRUST_PLATFORM and KRUST_ENGINE unset, so that auto-dispatch takes the
+   batch engine on the card. Any failure or error fails the phase, and so
+   does a run in which K1 or K2 never launched; the line gives the
+   outcomes, the seconds and each kernel's launches.
 
 The second-to-last line is the kernel table (launches from each kernel's
 phase plus those of phase 2's ``encode_blocks`` path, from phase 9's mesh
-count of phase 4's file and from its 4-slot counts in the NCCL group,
-times from phase 2), the last line the result. Any failed check raises:
-the script exits non-zero and prints no result.
+count of phase 4's file, from its 4-slot counts in the NCCL group and
+from phase 11's suites, times from phase 2), the last line the result.
+Any failed check raises: the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -146,7 +154,7 @@ import numpy as np
 READ_LEN = 250
 GENOME = 16_000_000
 MAIN_BASES = 512_000_000
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}
 #: phase 10's inputs: C2's dirty FASTQ, C3's genome-shaped FASTA (GRCh38's
 #: 3.1 Gbases), C5's gzip FASTQ
 C2_BASES = 64_000_000
@@ -166,6 +174,11 @@ C3_HOST_SPARE = 1.2
 #: windows on an 80 GB card): half the default, so that the slots exchange
 #: twice
 MESH_WINDOW_LIMIT = 1 << 30
+
+#: loaders phase 11 leaves out: the CLI's tests start a CLI process each
+#: with the native engine (about 8 s a test on the H100's host), and phase
+#: 10 runs the CLI on the card; the meta-test holds the loaders themselves
+PHASE11_LEFT_OUT = ("tests/test_torch_ref_cli.py", "tests/test_torch_ref_meta.py")
 
 #: the card's peaks the bound is taken against (NVIDIA H100 SXM data sheet):
 #: HBM bytes/s, and the float32 rate outside the tensor cores as the rate
@@ -2039,6 +2052,44 @@ def _phase10(rng, gpu, tmp, main, main4) -> None:
         os.unlink(r["counts"])
 
 
+def _phase11(gpu, tmp) -> dict:
+    """krust_tpu's behaviour suites, loaded against the port, on the card:
+    returns the kernels' launches over the run."""
+    import glob
+
+    import torch
+
+    torch.cuda.empty_cache()  # the child needs the card this process has cached
+    repo = os.path.dirname(os.path.abspath(__file__))
+    files = sorted(os.path.relpath(p, repo)
+                   for p in glob.glob(os.path.join(repo, "tests", "test_torch_ref_*.py")))
+    files = [f for f in files if f not in PHASE11_LEFT_OUT]
+    res, log = os.path.join(tmp, "phase11.json"), os.path.join(tmp, "phase11.log")
+    env = {k: v for k, v in os.environ.items() if k not in ("KRUST_PLATFORM", "KRUST_ENGINE")}
+    argv = [sys.executable, os.path.join("tests", "torch_reference_suite.py"), res, *files,
+            "-q", "-rfE", "-m", "not slow", "-p", "no:randomly",
+            f"--basetemp={os.path.join(tmp, 'phase11')}"]
+    with open(log, "w") as out:
+        rc = subprocess.run(argv, cwd=repo, env=env, stdout=out, stderr=subprocess.STDOUT,
+                            timeout=600).returncode
+    with open(log) as f:
+        tail = f.read()[-6000:]
+    if rc != 0 or not os.path.exists(res):
+        raise AssertionError(f"phase 11 child exited {rc}:\n{tail}")
+    with open(res) as f:
+        r = json.load(f)
+    _emit({"phase": 11, "files": len(files), "left_out": list(PHASE11_LEFT_OUT),
+           "rc": r["rc"], "passed": r["passed"],
+           "failed": r["failed"], "errors": r["error"], "xfailed": r["xfailed"],
+           "xpassed": r["xpassed"], "skipped": r["skipped"], "deselected": r["deselected"],
+           "seconds": r["seconds"], "launches": r["launches"], "gpu": gpu})
+    if r["rc"] != 0 or r["failed"] or r["error"] or r["xpassed"] or not r["passed"]:
+        raise AssertionError(f"phase 11: the loaded suites failed:\n{tail}")
+    if not (r["launches"]["encode_windows"] and r["launches"]["rle_compact"]):
+        raise AssertionError(f"phase 11 skipped K1 or K2: {r['launches']}")
+    return r["launches"]
+
+
 #: per kernel wrapper: its source, the TPU kernel it replaces, the phase
 #: whose counting run (or, for K5, timing) gives its launches, and the
 #: design it was rebuilt to for the card
@@ -2127,6 +2178,8 @@ def main() -> int:
             main4, launches[9], launches["9 group"] = _phase9(rng, gpu, tmp, main, main4)
         if 10 in phases:
             _phase10(rng, gpu, tmp, main, main4)
+        if 11 in phases:
+            launches[11] = _phase11(gpu, tmp)
 
     kernels = []
     by_blocks = results.get("encode_blocks_launches", {})
@@ -2140,6 +2193,7 @@ def main() -> int:
                         "launches_encode_blocks": by_blocks.get(name),
                         "launches_local_mesh": launches.get(9, {}).get(name),
                         "launches_group_slots": launches.get("9 group", {}).get(name),
+                        "launches_reference_suites": launches.get(11, {}).get(name),
                         "max_abs_err": r.get("max_abs_err"),
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),

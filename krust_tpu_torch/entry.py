@@ -8,8 +8,9 @@ the one-device counting step, K1 (``encode_windows``) -> ``torch.sort`` ->
 K2 (``rle_compact``), at k = 21 with example arguments made from a seed;
 :func:`dryrun_multichip` counts in one process over the first N GPUs
 (default: all of them) at k = 21 and k = 13 and raises unless the table
-equals the numpy engine's. ``--device cpu`` runs both on N CPU slots, the
-kernels' plain versions (a rehearsal without a GPU).
+equals the numpy engine's. ``--device cpu`` (or ``KRUST_PLATFORM=cpu``)
+runs both on N CPU slots, the kernels' plain versions (a rehearsal
+without a GPU).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from .ops.fused_codec import TAIL_BYTES, encode_windows
 from .ops.rle import rle_compact
 from .parallel.mesh import make_mesh
 from .parallel.sharded import count_sharded
-from .utils.config import EngineConfig
+from .utils.config import EngineConfig, forced_platform
 
 K = 21
 
@@ -39,13 +40,17 @@ def entry(device=None):
     window (the sentinel where a window holds an invalid base), ``torch.sort``
     orders the keys and K2 compacts the runs, giving (keys, counts,
     n_unique). The arguments lie on ``device``: the first GPU unless
-    another is named (on the CPU the kernels' plain versions run).
+    another is named or ``KRUST_PLATFORM=cpu`` asks for the CPU (on the
+    CPU the kernels' plain versions run).
     """
     if device is None:
-        if not torch.cuda.is_available():
+        if forced_platform() == "cpu":
+            device = "cpu"
+        elif torch.cuda.is_available():
+            device = "cuda:0"
+        else:
             raise RuntimeError("no CUDA device: entry() runs on a GPU unless "
-                               "device= names another")
-        device = "cuda:0"
+                               "device= names another or KRUST_PLATFORM=cpu")
     device = torch.device(device)
     n_windows = 1 << 16
 
@@ -64,12 +69,15 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     """Count in one process over an n-device mesh and check the table.
 
     The mesh is the first ``n_devices`` GPUs, or ``n_devices`` slots on
-    ``device`` when one is named. 4n random reads of 200 bases (seed 42)
-    pass through the whole sharded path: batches dealt to the slots, the
-    codec and the epoch table on each, the in-process hash exchange and
-    the gather. k = 21 (int64 keys) and k = 13 (int32 keys) must each equal
-    the numpy engine's table; any difference raises.
+    ``device`` when one is named (on the CPU under ``KRUST_PLATFORM=cpu``).
+    4n random reads of 200 bases (seed 42) pass through the whole sharded
+    path: batches dealt to the slots, the codec and the epoch table on
+    each, the in-process hash exchange and the gather. k = 21 (int64 keys)
+    and k = 13 (int32 keys) must each equal the numpy engine's table; any
+    difference raises.
     """
+    if device is None and forced_platform() == "cpu":
+        device = "cpu"
     mesh = make_mesh(n_devices, devices=None if device is None else [device] * n_devices)
     rng = np.random.default_rng(42)
     seqs = ["".join(np.array(list("ACGT"))[rng.integers(0, 4, size=200)])

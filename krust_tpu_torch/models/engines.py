@@ -35,7 +35,7 @@ import torch
 
 from ..io.reader import ParsedStreams
 from ..kmer import INVALID_CODE, unpack_many
-from ..utils.config import EngineConfig
+from ..utils.config import EngineConfig, forced_platform
 from ..utils.progress import Progress, ProgressTracker
 from ..utils.tracing import span, trace_event
 
@@ -639,9 +639,12 @@ def select_engine(cfg: EngineConfig):
     Dispatch order: explicit numpy request (config beats environment —
     it is the documented differential-testing knob) -> KRUST_ENGINE env
     override (``native`` / ``numpy`` / ``device``; a forced device with no
-    CUDA device and no explicit ``config.device`` raises) -> a CUDA device,
-    or an explicit ``config.device``, -> the batch engine; otherwise the
-    native host core (numpy when it cannot build).
+    CUDA device, no explicit ``config.device`` and no ``KRUST_PLATFORM=cpu``
+    raises) -> a CUDA device, an explicit ``config.device`` or
+    ``KRUST_PLATFORM=cpu`` (:func:`~krust_tpu_torch.utils.config.forced_platform`:
+    the batch engine on the CPU, as krust_tpu keeps its device engine on
+    XLA-CPU when the CPU platform is forced) -> the batch engine; otherwise
+    the native host core (numpy when it cannot build).
     """
     if cfg.use_numpy_backend:
         return NumpyEngine(cfg)  # explicit request: the pure-numpy oracle
@@ -650,7 +653,8 @@ def select_engine(cfg: EngineConfig):
         return NumpyEngine(cfg)
     if forced == "native":
         return NativeEngine(cfg)
-    device_ok = cfg.device is not None or torch.cuda.is_available()
+    device_ok = (cfg.device is not None or forced_platform() == "cpu"
+                 or torch.cuda.is_available())
     if forced in ("device", "torch", "batch"):
         if not device_ok:
             raise RuntimeError(

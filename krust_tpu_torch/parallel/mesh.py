@@ -31,6 +31,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from ..utils.config import default_device, forced_platform
+
 
 @dataclass(frozen=True)
 class Mesh:
@@ -69,13 +71,20 @@ def _indexed(device) -> torch.device:
     return device
 
 
-def _require_cuda() -> None:
-    """No CPU fallback: without CUDA the caller must name the device."""
+def _local_devices() -> tuple:
+    """This process's devices when none are named: one CPU slot when
+    ``KRUST_PLATFORM=cpu`` asks for the CPU, else every visible GPU. No
+    CPU fallback: without CUDA the caller must name the device or ask for
+    the CPU."""
+    if forced_platform() == "cpu":
+        return (torch.device("cpu"),)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the sharded count runs on a GPU unless "
-            "EngineConfig(device=...) names another device"
+            "EngineConfig(device=...) names another device or KRUST_PLATFORM=cpu "
+            "asks for the CPU"
         )
+    return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
 
 
 def _host_rank(group) -> tuple[int, int]:
@@ -94,10 +103,13 @@ def _host_rank(group) -> tuple[int, int]:
 def _host_share(group) -> tuple:
     """This rank's share of its host's GPUs: rank i of the host's n ranks
     takes ``cuda:i*g .. cuda:i*g+g-1``, g the GPUs over n. A split that is
-    uneven raises ``ValueError``: two ranks never drive one card."""
-    _require_cuda()
+    uneven raises ``ValueError``: two ranks never drive one card. Under
+    ``KRUST_PLATFORM=cpu`` every rank drives one CPU slot."""
+    local = _local_devices()
+    if local[0].type == "cpu":
+        return local
     i, n = _host_rank(group)
-    gpus = torch.cuda.device_count()
+    gpus = len(local)
     if gpus % n:
         raise ValueError(f"{gpus} GPUs do not split evenly over the host's {n} ranks")
     g = gpus // n
@@ -123,8 +135,7 @@ def _rank_devices(n_devices, device, devices, world, group) -> tuple:
     elif group is not None:
         avail = _host_share(group)
     else:
-        _require_cuda()
-        avail = tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+        avail = _local_devices()
     if per_rank is not None:
         if per_rank > len(avail):
             raise ValueError(f"requested {n_devices} devices, only {len(avail) * world} "
@@ -139,9 +150,10 @@ def make_mesh(n_devices: int | None = None, device=None, devices=None) -> Mesh:
     """This process's mesh.
 
     Without a process group: the first ``n_devices`` of ``devices``, one
-    slot each; ``devices`` defaults to every visible GPU, or to ``device``
-    alone when one is named (a mesh of one). Asking for more devices than
-    there are raises ``ValueError``.
+    slot each; ``devices`` defaults to every visible GPU (one CPU slot
+    under ``KRUST_PLATFORM=cpu``), or to ``device`` alone when one is
+    named (a mesh of one). Asking for more devices than there are raises
+    ``ValueError``.
 
     In a process group (:func:`init_distributed`), a collective: every
     rank drives its host's GPUs shared evenly among the host's ranks
@@ -174,8 +186,9 @@ def make_mesh(n_devices: int | None = None, device=None, devices=None) -> Mesh:
 
 
 def init_distributed(coordinator: str | None = None, **kwargs) -> None:
-    """Join the default process group: NCCL when CUDA is available, gloo
-    otherwise (``backend=`` overrides).
+    """Join the default process group: NCCL when CUDA is available and
+    ``KRUST_PLATFORM=cpu`` does not ask for the CPU, gloo otherwise
+    (``backend=`` overrides).
 
     ``coordinator`` is an ``init_method`` (``tcp://host:port``,
     ``file:///path``; a bare ``host:port`` means TCP); None reads the
@@ -188,7 +201,7 @@ def init_distributed(coordinator: str | None = None, **kwargs) -> None:
     on one host's GPUs need not call this.
     """
     backend = kwargs.pop("backend", None) or (
-        "nccl" if torch.cuda.is_available() else "gloo"
+        "nccl" if default_device().type == "cuda" else "gloo"
     )
     if backend == "nccl" and "LOCAL_WORLD_SIZE" not in os.environ:
         backend = "cpu:gloo,cuda:nccl"

@@ -7,13 +7,39 @@ are always available; knobs that were features become fields here.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
 
 
+def forced_platform() -> str | None:
+    """The platform ``KRUST_PLATFORM`` asks for: None when it is unset or
+    empty, ``"cpu"``, or ``"cuda"`` (spelled ``gpu`` or ``cuda``).
+
+    The counterpart of krust_tpu's ``_cpu_platform_forced``.
+    ``KRUST_PLATFORM=cpu`` runs the batch engine and the sharded path on
+    the CPU, the kernels' plain versions; ``cuda`` raises ``RuntimeError``
+    when no CUDA device is available; any other value raises
+    ``ValueError``. ``JAX_PLATFORMS`` is JAX's own and is not read.
+    """
+    value = os.environ.get("KRUST_PLATFORM", "").strip().lower()
+    if not value:
+        return None
+    if value == "cpu":
+        return "cpu"
+    if value in ("gpu", "cuda"):
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"KRUST_PLATFORM={value}: no CUDA device is available")
+        return "cuda"
+    raise ValueError(f"KRUST_PLATFORM={value!r}: expected 'cpu', 'gpu' or 'cuda'")
+
+
 def default_device() -> torch.device:
-    """The first CUDA device when one is visible, else the CPU."""
+    """The CPU when ``KRUST_PLATFORM=cpu`` asks for it, else the first
+    CUDA device when one is visible, else the CPU."""
+    if forced_platform() == "cpu":
+        return torch.device("cpu")
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 

@@ -363,6 +363,7 @@ def test_a_batch_on_the_wrong_slot_raises():
 
 
 def test_make_mesh_without_a_process_group(monkeypatch):
+    monkeypatch.delenv("KRUST_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     gpus = tuple(torch.device("cuda", i) for i in range(4))
@@ -383,6 +384,7 @@ def test_make_mesh_without_a_process_group(monkeypatch):
 
 
 def test_make_mesh_with_no_gpu_needs_a_device(monkeypatch):
+    monkeypatch.delenv("KRUST_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh(2)
@@ -422,6 +424,7 @@ def gloo_one_rank(tmp_path):
 def test_default_split_shares_the_host_gpus(monkeypatch, gloo_one_rank, host_ranks):
     """8 GPUs over the host's ranks (torchrun's ``LOCAL_WORLD_SIZE``): each
     local rank i drives its own g = 8 / ranks cards, ``cuda:i*g`` on."""
+    monkeypatch.delenv("KRUST_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
     monkeypatch.setenv("LOCAL_WORLD_SIZE", str(host_ranks))
@@ -440,6 +443,7 @@ def test_default_split_shares_the_host_gpus(monkeypatch, gloo_one_rank, host_ran
 def test_default_split_counts_the_host_ranks_by_name(monkeypatch, gloo_one_rank):
     """Without ``LOCAL_WORLD_SIZE`` the host's ranks are those that share
     its name: here the one rank, so every GPU."""
+    monkeypatch.delenv("KRUST_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
@@ -447,6 +451,7 @@ def test_default_split_counts_the_host_ranks_by_name(monkeypatch, gloo_one_rank)
 
 
 def test_an_uneven_split_raises(monkeypatch, gloo_one_rank):
+    monkeypatch.delenv("KRUST_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 6)
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
@@ -462,6 +467,7 @@ def test_an_uneven_split_raises(monkeypatch, gloo_one_rank):
                                                           (8, 5, 5)])
 def test_init_distributed_selects_the_first_device(monkeypatch, host_ranks, local_rank, first):
     """With NCCL, the rank's first device of the split, ``cuda:i*g``."""
+    monkeypatch.delenv("KRUST_PLATFORM", raising=False)
     calls = []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
@@ -477,6 +483,7 @@ def test_init_distributed_selects_the_first_device(monkeypatch, host_ranks, loca
 def test_init_distributed_counts_host_ranks_without_torchrun(monkeypatch, tmp_path):
     """Without ``LOCAL_WORLD_SIZE`` the group also takes gloo, for the
     gather of host names before the first device is selected."""
+    monkeypatch.delenv("KRUST_PLATFORM", raising=False)
     calls = []
     real_init = torch.distributed.init_process_group
 
@@ -536,6 +543,7 @@ def test_entry_counts_a_slice():
 
 
 def test_entry_needs_a_gpu_unless_a_device_is_named(monkeypatch):
+    monkeypatch.delenv("KRUST_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry_mod.entry()

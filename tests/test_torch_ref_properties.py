@@ -1,0 +1,9 @@
+"""krust_tpu's tests/test_properties.py, run against the port (see
+tests/torch_reference_suite.py)."""
+
+from torch_reference_suite import load
+
+STATED: dict[str, str] = {}
+BESIDE: dict[str, str] = {}
+
+globals().update(load("test_properties", STATED))

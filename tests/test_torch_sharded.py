@@ -275,6 +275,7 @@ def test_owner_of_matches_jax(k, n):
 def test_no_cpu_fallback(monkeypatch):
     """Without CUDA the sharded path runs only where the config names the
     CPU."""
+    monkeypatch.delenv("KRUST_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     s = streams_from_sequences(["ACGTACGTAC"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -287,6 +288,7 @@ def test_no_cpu_fallback(monkeypatch):
 
 
 def test_make_mesh_and_init_distributed(monkeypatch, tmp_path):
+    monkeypatch.delenv("KRUST_PLATFORM", raising=False)
     mesh = make_mesh(device="cpu")
     assert (mesh.group, mesh.size, mesh.rank, mesh.device) == (None, 1, 0, torch.device("cpu"))
     assert make_mesh(1, device="cpu") == mesh

@@ -495,6 +495,7 @@ def test_ptxas_report_parses_the_build_log(tmp_path, monkeypatch):
 
 def test_select_engine(monkeypatch):
     monkeypatch.delenv("KRUST_ENGINE", raising=False)
+    monkeypatch.delenv("KRUST_PLATFORM", raising=False)
     assert isinstance(engines.select_engine(EngineConfig(device="cpu")), BatchEngine)
     assert isinstance(
         engines.select_engine(EngineConfig(use_numpy_backend=True)), NumpyEngine

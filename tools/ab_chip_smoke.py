@@ -10,7 +10,8 @@ line of every run goes to ``--out`` with the tree and the turn added. The
 last line of standard output is the summary: for each phase-2 row (kernel
 and shape), each tree's kernel ms in its turns and the row's bound; for
 each counting line of phases 3-10 (its phase, case, table, process group,
-mesh, entry, k, bases and quality filter), each tree's seconds. A run
+mesh, entry, k, bases and quality filter) and phase 11's run of the loaded
+reference suites (its files and outcome counts), each tree's seconds. A run
 that fails stops the comparison.
 """
 
@@ -30,7 +31,7 @@ _MEASURED = {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_byte
              "code_form_equal"}
 #: fields that tell a phase's counting runs apart (a list or a dict is no key)
 _CASE = ("phase", "case", "table", "process_group", "mesh", "entry", "k", "bases",
-         "min_quality")
+         "min_quality", "files", "passed", "failed", "errors", "xfailed", "skipped")
 #: shape fields an older tree's lines may lack, with the value they had
 _DEFAULTS = {"encode_windows": {"invalid_share": 0.01}, "rle_compact": {"stream": "random"},
              "merge_sorted": {"parts": "random"}}
