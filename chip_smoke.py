@@ -128,9 +128,13 @@ Phases, printing JSON lines:
    loaders but the CLI's, ``PHASE11_LEFT_OUT``) in a child process, with
    ``--noconftest`` (conftest.py imports JAX), ``-m 'not slow'`` and
    KRUST_PLATFORM and KRUST_ENGINE unset, so that auto-dispatch takes the
-   batch engine on the card. Any failure or error fails the phase, and so
-   does a run in which K1 or K2 never launched; the line gives the
-   outcomes, the seconds and each kernel's launches.
+   batch engine on the card and the forms layer
+   (``tests/torch_reference_forms.py``) sends krust_tpu's kernel, count
+   and table call forms to the kernels (the kernel, codec, flat-path and
+   table suites, ``PHASE11_FORMED``). Any failure, error or xpass fails
+   the phase, and so does a run in which K1, K2, K3 or K5 never launched;
+   the line gives the outcomes, the seconds, each kernel's launches (K4's
+   among them) and each formed file's passes, xfails and seconds.
 
 The second-to-last line is the kernel table (launches from each kernel's
 phase plus those of phase 2's ``encode_blocks`` path, from phase 9's mesh
@@ -179,6 +183,11 @@ MESH_WINDOW_LIMIT = 1 << 30
 #: with the native engine (about 8 s a test on the H100's host), and phase
 #: 10 runs the CLI on the card; the meta-test holds the loaders themselves
 PHASE11_LEFT_OUT = ("tests/test_torch_ref_cli.py", "tests/test_torch_ref_meta.py")
+
+#: the reference files phase 11 runs through krust_tpu's (hi, lo) call
+#: forms (tests/torch_reference_suite.py FORMED), reported one by one
+PHASE11_FORMED = ("test_codec", "test_epoch_table", "test_flat", "test_pallas",
+                  "test_pallas_fused", "test_pallas_merge", "test_pallas_rle", "test_table")
 
 #: the card's peaks the bound is taken against (NVIDIA H100 SXM data sheet):
 #: HBM bytes/s, and the float32 rate outside the tensor cores as the rate
@@ -2078,15 +2087,24 @@ def _phase11(gpu, tmp) -> dict:
         raise AssertionError(f"phase 11 child exited {rc}:\n{tail}")
     with open(res) as f:
         r = json.load(f)
+    formed = {f"tests/test_torch_ref_{name[len('test_'):]}.py" for name in PHASE11_FORMED}
     _emit({"phase": 11, "files": len(files), "left_out": list(PHASE11_LEFT_OUT),
            "rc": r["rc"], "passed": r["passed"],
            "failed": r["failed"], "errors": r["error"], "xfailed": r["xfailed"],
            "xpassed": r["xpassed"], "skipped": r["skipped"], "deselected": r["deselected"],
-           "seconds": r["seconds"], "launches": r["launches"], "gpu": gpu})
+           "seconds": r["seconds"], "launches": r["launches"],
+           "formed": {f: {key: o[key] for key in ("passed", "xfailed", "failed", "error",
+                                                   "xpassed", "seconds")}
+                      for f, o in sorted(r["files"].items()) if f in formed},
+           "gpu": gpu})
     if r["rc"] != 0 or r["failed"] or r["error"] or r["xpassed"] or not r["passed"]:
         raise AssertionError(f"phase 11: the loaded suites failed:\n{tail}")
-    if not (r["launches"]["encode_windows"] and r["launches"]["rle_compact"]):
-        raise AssertionError(f"phase 11 skipped K1 or K2: {r['launches']}")
+    if formed - set(r["files"]):
+        raise AssertionError(f"phase 11 ran no test of {sorted(formed - set(r['files']))}")
+    missing = [name for name in ("encode_windows", "rle_compact", "merge_sorted",
+                                 "merge_sorted_keys") if not r["launches"][name]]
+    if missing:
+        raise AssertionError(f"phase 11 never launched {missing}: {r['launches']}")
     return r["launches"]
 
 

@@ -449,8 +449,9 @@ class BatchEngine:
 
         The flat path while invalid bases are sparse (K1 on stream slices
         plus invalid positions); the dense path (K4 on haloed 2-bit rows
-        plus an invalid bitmask) for dirtier streams and for block
-        geometries the flat layout cannot hold, as ``krust_tpu`` routes.
+        plus an invalid bitmask) for dirtier streams, for block geometries
+        the flat layout cannot hold and under ``use_flat=False``, as
+        ``krust_tpu`` routes.
         Batch i is staged on ``devices[i % n]`` (default: the engine's
         device alone), each device's copies on its own current stream, and
         the table takes the batches in that order. Each batch charges
@@ -480,7 +481,7 @@ class BatchEngine:
 
         flat = flat_batches(
             streams.codes, qual_stream, k, thr, cfg.block_windows, cfg.batch_rows
-        )
+        ) if cfg.use_flat else None
         if flat is not None:
             batches = flat
 

@@ -50,11 +50,10 @@ def merge_sorted(a_keys, a_cnt, b_keys, b_cnt):
 
     Keys are int32 or int64 biased keys (both parts one dtype), sentinels
     as ordinary maximal keys; lengths may differ. Equal keys keep a-before-b
-    order. Returns (keys, counts) of length ``len(a) + len(b)``.
+    order. Returns (keys, counts) of length ``len(a) + len(b)``. Parts of
+    two key dtypes, or counts that are not int32 of their keys' shape,
+    raise ``ValueError`` on every device.
     """
-    if a_keys.device.type == "cpu":
-        return merge_sorted_plain(a_keys, a_cnt, b_keys, b_cnt)
-    _cuda.require_cuda("merge_sorted", a_keys, a_cnt, b_keys, b_cnt)
     if (
         a_keys.dtype != b_keys.dtype
         or a_keys.dtype not in (torch.int32, torch.int64)
@@ -64,6 +63,9 @@ def merge_sorted(a_keys, a_cnt, b_keys, b_cnt):
         or b_cnt.shape != b_keys.shape
     ):
         raise ValueError("merge_sorted: one key dtype, int32 counts per key")
+    if a_keys.device.type == "cpu":
+        return merge_sorted_plain(a_keys, a_cnt, b_keys, b_cnt)
+    _cuda.require_cuda("merge_sorted", a_keys, a_cnt, b_keys, b_cnt)
     ma, mb = a_keys.numel(), b_keys.numel()
     out_keys = torch.empty(ma + mb, dtype=a_keys.dtype, device=a_keys.device)
     out_cnt = torch.empty(ma + mb, dtype=torch.int32, device=a_keys.device)

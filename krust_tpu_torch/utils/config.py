@@ -84,6 +84,12 @@ class EngineConfig:
     #: oracle of the epoch table and the base of the sharded tables.
     use_epoch_sort: bool = True
 
+    #: take the flat route (K1 on 2-bit stream slices plus sparse invalid
+    #: positions) where the stream allows it; False sends every batch
+    #: down the dense route (K4 on haloed 2-bit rows plus an invalid
+    #: bitmask). Both give the same table.
+    use_flat: bool = True
+
     #: device the batch engine counts on (None = :func:`default_device`)
     device: torch.device | str | None = None
 

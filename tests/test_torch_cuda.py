@@ -717,3 +717,14 @@ def test_kmix_from_device_table_matches_native(dev, tmp_path, k):
     assert (tmp_path / "dev.kmix").read_bytes() == (tmp_path / "nat.kmix").read_bytes()
     index = load_index(tmp_path / "dev.kmix")
     assert [index.get(int(c)) for c in exp.codes] == exp.counts.tolist()
+
+
+def test_forms_ch_is_the_kernels_int64_tile(dev):
+    """tests/torch_reference_forms.py's CH, the size the loaded kernel
+    suites cut their inputs at, is K3's and K2's int64 tile as built."""
+    import torch_reference_forms as forms
+
+    from krust_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    assert forms.CH == lib.krust_merge_tile(8) == lib.krust_rle_tile(8)

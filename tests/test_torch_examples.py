@@ -11,6 +11,7 @@ krust_tpu's targets) and of ``tools/soak_torch.py --device cpu``.
 
 import importlib.util
 import os
+import re
 import runpy
 import subprocess
 import sys
@@ -114,6 +115,22 @@ def test_fuzz_targets_torch_in_suite():
     spec.loader.exec_module(mod)
     assert "krust_tpu_torch" in mod.Kmer.__module__
     mod.main(10_000)
+
+
+def test_coverage_fuzz_torch_short_run():
+    """A seeded run of the port's coverage-guided fuzzer (3000 inputs a
+    target): every target passes and reaches edges of krust_tpu_torch."""
+    path = os.path.join(REPO, "fuzz", "coverage_fuzz_torch.py")
+    with open(path) as f:
+        imports = [line for line in f.read().splitlines()
+                   if line.startswith(("import ", "from "))]
+    assert not [line for line in imports if "jax" in line or re.search(r"\bkrust_tpu\b", line)]
+    out = subprocess.run([sys.executable, path, "3000", "all"], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    edges = [int(m) for m in re.findall(r"\] done: (\d+) total edges", out.stdout)]
+    assert len(edges) == 3 and 0 < edges[0] <= edges[1] <= edges[2], out.stdout
+    assert out.stdout.rstrip().endswith("coverage-guided fuzz passed")
 
 
 def test_soak_on_the_cpu():

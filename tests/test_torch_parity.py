@@ -87,7 +87,6 @@ NAME_DIFFERENCES = {
         "EpochShardedTable.PENDING_ENTRY_LIMIT": _PENDING,
     },
     "krust_tpu.utils.config": {"EngineConfig.use_pallas": _TOGGLES,
-                               "EngineConfig.use_flat": _TOGGLES,
                                "EngineConfig.use_fused_codec": _TOGGLES},
 }
 
@@ -109,9 +108,9 @@ SIGNATURE_DIFFERENCES = {
         "ShardedTable.add": _ONE_KEY, "EpochShardedTable.add": _ONE_KEY,
         "EpochShardedTable": _NO_INTERPRET + "; slot, the table's mesh slot, is in its place",
     },
-    "krust_tpu.utils.config": {"EngineConfig": "no use_pallas, use_flat or use_fused_codec "
-                                               "field, so the fields after them shift; "
-                                               "device is the port's, last"},
+    "krust_tpu.utils.config": {"EngineConfig": "no use_pallas or use_fused_codec field, "
+                                               "so the fields after them shift; use_flat "
+                                               "and the port's device come last"},
 }
 
 

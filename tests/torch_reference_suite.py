@@ -3,8 +3,11 @@
 ``load(name, stated)`` reads ``tests/<name>.py`` as text, replaces the word
 ``krust_tpu`` with ``krust_tpu_torch`` (a word-boundary match: a
 ``krust_tpu_torch`` already there is left alone) and the reference's
-harness files that a test loads by path with the port's twins (``TWINS``),
-compiles the result under the reference file's own path (so ``__file__``,
+harness files that a test loads by path with the port's twins (``TWINS``).
+In the files that reach ``krust_tpu``'s (hi, lo) call forms (``FORMED``:
+the kernel, codec, flat-path and table suites) the module paths of
+``FORMS`` name the forms layer (``tests/torch_reference_forms.py``) first,
+and ``jax.numpy`` is numpy. It then compiles the result under the reference file's own path (so ``__file__``,
 ``fixtures/`` and tracebacks point to the original, and ``assert`` is
 rewritten as pytest rewrites a test file's) and returns the names it
 defines: its tests, classes, fixtures and ``pytestmark``. A
@@ -33,9 +36,10 @@ files run with ``--noconftest``, conftest's fixtures coming from
 
     python tests/torch_reference_suite.py OUT.json [pytest arguments]
 
-runs pytest in this process and writes its outcomes, its seconds and the
-launches of the port's kernels over the run to ``OUT.json``
-(chip_smoke.py phase 11 runs the loaded files this way on the GPU).
+runs pytest in this process and writes its outcomes, its seconds, each
+test file's outcomes and seconds, and the launches of the port's kernels
+over the run to ``OUT.json`` (chip_smoke.py phase 11 runs the loaded files
+this way on the GPU, where the forms send every form to the kernels).
 """
 
 from __future__ import annotations
@@ -61,16 +65,24 @@ LOADED = (
     "test_builder",
     "test_chunked",
     "test_cli",
+    "test_codec",
+    "test_epoch_table",
+    "test_flat",
     "test_histogram",
     "test_index",
     "test_jellyfish_compat",
     "test_kmer",
     "test_native",
     "test_output",
+    "test_pallas",
+    "test_pallas_fused",
+    "test_pallas_merge",
+    "test_pallas_rle",
     "test_properties",
     "test_reader",
     "test_review_fixes",
     "test_sniff_and_sharded_api",
+    "test_table",
     "test_tracing",
 )
 
@@ -78,25 +90,37 @@ _PORT_FILES = "the port's own differential files hold the same function against 
 
 #: reference test files (fnmatch patterns) that are not loaded, and why
 EXCLUDED = {
-    "test_pallas*": "Pallas kernels in interpret mode, their tile geometry and "
-                    "(hi, lo) signatures; the port's kernels are CUDA, held against "
-                    "krust_tpu's by test_torch_codec/fused_codec/merge/rle.py",
-    "test_codec": "the JAX codec's (hi, lo) uint32 signatures, a stated difference "
-                  "(ROADMAP Queue C); " + _PORT_FILES + " (test_torch_codec.py)",
-    "test_flat": "the byte-per-base flat layout and its JAX unpack, not ported; "
-                 + _PORT_FILES + " (test_torch_fused_codec.py)",
-    "test_table": "the JAX DeviceTable's [n_dev, L] chip axis and (hi, lo) parts; "
-                  + _PORT_FILES + " (test_torch_table.py)",
-    "test_epoch_table": "the JAX EpochTable's chip axis and (hi, lo) parts; "
-                        + _PORT_FILES + " (test_torch_table.py)",
     "test_kernel_geometry": "Pallas tile geometry (KRUST_MERGE_CHUNK, KRUST_RLE_CHUNK) "
-                            "of the TPU kernels; the CUDA kernels have their own "
-                            "(test_torch_slice.py, test_torch_sizing.py)",
+                            "of the TPU kernels, which the port does not read; the CUDA "
+                            "kernels have their own (test_torch_slice.py, "
+                            "test_torch_sizing.py)",
     "test_sharded": "JAX meshes of virtual XLA-CPU devices and shard_map; "
                     + _PORT_FILES + " (test_torch_local_mesh.py, test_torch_sharded.py)",
     "test_multihost": "jax.distributed processes over XLA-CPU devices; "
                       + _PORT_FILES + " (test_torch_multihost.py)",
 }
+
+#: the reference files that reach krust_tpu's (hi, lo) call forms: their
+#: import lines name the forms layer (tests/torch_reference_forms.py) for
+#: the module paths of FORMS, and ``import jax.numpy as jnp`` becomes
+#: ``import numpy as jnp`` (they use ``asarray``, ``zeros``, ``arange`` and
+#: the dtypes of it)
+FORMED = (
+    "test_codec",
+    "test_epoch_table",
+    "test_flat",
+    "test_pallas",
+    "test_pallas_fused",
+    "test_pallas_merge",
+    "test_pallas_rle",
+    "test_table",
+)
+
+#: krust_tpu module paths -> the forms layer's, in FORMED files
+FORMS = {f"krust_tpu.{m}": f"torch_reference_forms.{m}" for m in (
+    "ops.pallas_rle", "ops.pallas_merge", "ops.pallas_codec", "ops.pallas_fused",
+    "ops.count", "ops.table", "ops.codec", "io.packer", "models.engines",
+)}
 
 #: a harness file a reference test loads by path -> the port's twin
 TWINS = {"fuzz_targets.py": "fuzz_targets_torch.py"}
@@ -109,10 +133,24 @@ def path_of(name: str) -> str:
     return os.path.join(HERE, name + ".py")
 
 
+def _formed(text: str) -> str:
+    """``text`` with FORMS applied: ``krust_tpu.a.b`` and ``from krust_tpu.a
+    import b`` name the forms layer, and jnp is numpy."""
+    for ref, forms in FORMS.items():
+        parent, _, leaf = ref.rpartition(".")
+        text = re.sub(rf"\b{re.escape(ref)}\b", forms, text)
+        text = re.sub(rf"\bfrom {re.escape(parent)} import {leaf}\b",
+                      f"from {forms.rpartition('.')[0]} import {leaf}", text)
+    return text.replace("import jax.numpy as jnp", "import numpy as jnp")
+
+
 def port_source(name: str) -> str:
     """The reference file's text with the port's names in it."""
     with open(path_of(name), encoding="utf-8") as f:
-        text = _WORD.sub("krust_tpu_torch", f.read())
+        text = f.read()
+    if name in FORMED:
+        text = _formed(text)
+    text = _WORD.sub("krust_tpu_torch", text)
     for ref, port in TWINS.items():
         text = text.replace(f'"{ref}"', f'"{port}"')
     return text
@@ -201,15 +239,31 @@ class NoConftest:
 
 
 class _Outcomes:
-    """The run's outcomes as pytest's summary counts them."""
+    """The run's outcomes as pytest's summary counts them, in all and per
+    test file (with the seconds of the file's tests, setup and teardown
+    included)."""
 
     KEYS = ("passed", "failed", "error", "skipped", "xfailed", "xpassed", "deselected")
 
     def __init__(self):
         self.counts = {}
+        self.files: dict[str, dict] = {}
+        self._seconds: dict[str, float] = {}
+
+    def pytest_runtest_logreport(self, report):
+        path = report.nodeid.split("::")[0]
+        self._seconds[path] = self._seconds.get(path, 0.0) + report.duration
 
     def pytest_terminal_summary(self, terminalreporter):
-        self.counts = {key: len(terminalreporter.stats.get(key, ())) for key in self.KEYS}
+        stats = terminalreporter.stats
+        self.counts = {key: len(stats.get(key, ())) for key in self.KEYS}
+        for path, seconds in self._seconds.items():
+            self.files[path] = dict.fromkeys(self.KEYS[:-1], 0) | {"seconds": seconds}
+        for key in self.KEYS[:-1]:
+            for report in stats.get(key, ()):
+                path = getattr(report, "nodeid", "").split("::")[0]
+                if path in self.files:
+                    self.files[path][key] += 1
 
 
 def _kernels() -> dict:
@@ -237,7 +291,8 @@ def main(argv: list[str]) -> int:
     seconds = time.perf_counter() - t0
     with open(out, "w") as f:
         json.dump({"rc": int(rc), **outcomes.counts, "seconds": seconds,
-                   "launches": {name: fn.launches for name, fn in kernels.items()}}, f)
+                   "launches": {name: fn.launches for name, fn in kernels.items()},
+                   "files": outcomes.files}, f)
     return 0
 
 
