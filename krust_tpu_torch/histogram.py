@@ -12,6 +12,8 @@ from typing import Mapping
 
 import numpy as np
 
+from .utils.tracing import span
+
 
 def compute_histogram(counts: Mapping[str, int]) -> dict[int, int]:
     """Histogram from string-keyed counts (reference: src/histogram.rs:88-94)."""
@@ -27,8 +29,9 @@ def compute_histogram_array(count_values: np.ndarray) -> dict[int, int]:
     """Histogram straight from a device-produced count array (vectorized)."""
     if len(count_values) == 0:
         return {}
-    vals, freqs = np.unique(np.asarray(count_values), return_counts=True)
-    return {int(v): int(f) for v, f in zip(vals, freqs)}
+    with span("histogram", entries=len(count_values)):
+        vals, freqs = np.unique(np.asarray(count_values), return_counts=True)
+        return {int(v): int(f) for v, f in zip(vals, freqs)}
 
 
 def _histogram_of_values(values) -> dict[int, int]:

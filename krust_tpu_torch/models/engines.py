@@ -344,6 +344,13 @@ class _Feed:
     caps in-flight batches; FIFO order keeps results bit-identical to the
     synchronous loop. ``depth <= 0`` is the synchronous map.
 
+    Three spans: ``feed_pack`` around each ``next()`` of ``gen`` (the
+    dense packer or the flat path's slicing) and ``feed_stage`` around each
+    ``stage_fn`` call, both on the ``krust-feed`` thread (on the consumer's
+    thread when ``depth <= 0``); ``feed_wait`` around the consumer's wait
+    for a staged batch, on the consumer's thread, opened only when
+    ``depth > 0``.
+
     A context manager: leaving the ``with`` block — normally, or by an
     exception in the consumer's loop — stops the worker, drops staged
     batches and joins the thread, so no feeder outlives its consumer.
@@ -391,10 +398,24 @@ class _Feed:
                 continue
         return False
 
+    def _packed(self):
+        """``gen``'s batches, each ``next()`` one ``feed_pack`` span."""
+        it = iter(self._gen)
+        while True:
+            with span("feed_pack"):
+                b = next(it, self._done)
+            if b is self._done:
+                return
+            yield b
+
+    def _staged(self, b):
+        with span("feed_stage"):
+            return self._stage(b)
+
     def _work(self) -> None:
         try:
-            for b in self._gen:
-                if self._stop.is_set() or not self._put(self._stage(b)):
+            for b in self._packed():
+                if self._stop.is_set() or not self._put(self._staged(b)):
                     return
         except BaseException as e:  # re-raised in the consumer
             self._err.append(e)
@@ -403,11 +424,12 @@ class _Feed:
 
     def __iter__(self):
         if self._thread is None:
-            for b in self._gen:
-                yield self._stage(b)
+            for b in self._packed():
+                yield self._staged(b)
             return
         while True:
-            item = self._q.get()
+            with span("feed_wait"):
+                item = self._q.get()
             if item is self._done:
                 if self._err:
                     raise self._err[0]
@@ -458,7 +480,8 @@ class BatchEngine:
         ``charge`` windows (default: its own rows x ``block_windows``) to the
         table's epoch; ``table.finalize()`` is appended to ``epochs`` before
         a group of n batches could reach ``EPOCH_WINDOW_LIMIT``. Each
-        batch's encode and add is one ``batch_span``.
+        batch's encode and add is one ``batch_span``; the flat route's scan,
+        which may end in the dense route, one ``flat_scan``.
         """
         from ..io.packer import flat_batches, pack_buffer_2bit
         from ..ops import table as table_mod
@@ -479,9 +502,14 @@ class BatchEngine:
             with torch.cuda.stream(streams_of[dev]):
                 return tuple(_to_device(a, dev) for a in arrays)
 
-        flat = flat_batches(
-            streams.codes, qual_stream, k, thr, cfg.block_windows, cfg.batch_rows
-        ) if cfg.use_flat else None
+        flat = None
+        if cfg.use_flat:
+            # flat_batches scans here, on this thread; the dense route packs
+            # inside the feed's first next()
+            with span("flat_scan"):
+                flat = flat_batches(
+                    streams.codes, qual_stream, k, thr, cfg.block_windows, cfg.batch_rows
+                )
         if flat is not None:
             batches = flat
 

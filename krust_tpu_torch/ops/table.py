@@ -192,7 +192,9 @@ def _pull_table(t_keys, t_cnt, n: int, k: int) -> tuple[np.ndarray, np.ndarray]:
     with span("pull_table", entries=n):
         keys = t_keys[:n].cpu().numpy()
         counts = t_cnt[:n].to(torch.int64).cpu().numpy().view(np.uint64)
-    return keys_to_codes(keys, k), counts
+    with span("decode_codes", entries=n):
+        codes = keys_to_codes(keys, k)
+    return codes, counts
 
 
 def _no_part(k: int, device: torch.device):

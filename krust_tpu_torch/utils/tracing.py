@@ -6,6 +6,11 @@ runtime by the ``KRUST_LOG`` env var (e.g. ``KRUST_LOG=debug``), emitting via
 the stdlib ``logging`` module. Every span is also a
 ``torch.profiler.record_function`` range of the same name, so phases
 (``encode_count_batch``, ``epoch_flush``, ...) show up in profiler traces.
+
+A span opened off the main thread (the feed's ``feed_pack`` and
+``feed_stage`` on ``krust-feed``) reaches the collectors but, under a
+default ``torch.profiler`` configuration, not the profiler's trace: only a
+profiler set to profile every thread records it.
 """
 
 from __future__ import annotations
