@@ -31,7 +31,10 @@ Phases, printing JSON lines:
    shaped like phase 4's merge (2^26 entries each, about 46M distinct keys
    that both parts share, sentinel tails), in both key widths; the kernel
    line takes the int64 shared row. K5 lies on no counting path: its
-   launches in the kernel line are those of its timing here. K2 and K3
+   launches in the kernel line are those of its timing here. K6 (the
+   count-of-counts at the table pull) runs on the assembly cell's 112.9M
+   counts, with torch.bincount over the counts capped at its bins as
+   ``library_ms``. K2 and K3
    also run on 2^31 - 2^20 + 7 int64 entries (a table lifetime's last
    merge), checked against their closed form. Then the table's memory:
    peak device bytes of an epoch flush (2^26, 2^28, 2^30 raw keys, int64
@@ -383,6 +386,47 @@ def _check_rle(g, gpu, dev, results):
             timed = row
         del keys, cnt, got, exp
     results["rle_compact"] = timed
+
+
+def _check_histogram(g, gpu, dev, results):
+    """K6 at the assembly cell's table: 112.9M skewed int32 counts, most 1,
+    a pareto tail past the bins (so the overflow launch runs)."""
+    import torch
+
+    from krust_tpu_torch.ops import _cuda
+    from krust_tpu_torch.ops.histogram import BINS, count_histogram, count_histogram_plain
+
+    n = 112_900_000
+    u = torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+    counts = torch.clamp(torch.floor(u.pow(-1 / 1.5)), max=2**31 - 1).to(torch.int32)
+    del u
+    got = count_histogram(counts)
+    exp = count_histogram_plain(counts)
+    if not (np.array_equal(got.values, exp.values) and np.array_equal(got.freqs, exp.freqs)):
+        raise AssertionError("K6: kernel != plain")
+    lib, acc = _cuda.library(), torch.empty(BINS + 1, dtype=torch.int64, device=dev)
+    stream = _cuda.stream_of(counts)
+
+    def kernel():  # the bins' launch alone, as the pull's device time has it
+        _cuda.check("count_histogram", lib.krust_count_histogram(
+            dev.index, counts.data_ptr(), n, BINS, acc.data_ptr(), stream))
+
+    ms = _time_ms(kernel, 20)
+    start = time.perf_counter()
+    for _ in range(5):
+        count_histogram(counts)
+    call_ms = (time.perf_counter() - start) / 5 * 1e3
+    capped = counts.clamp(max=BINS)
+    row = {"ms": ms, "call_ms": call_ms, "plain_ms": _time_ms(
+        lambda: count_histogram_plain(counts), 2),
+        "library_ms": _time_ms(lambda: torch.bincount(capped, minlength=BINS + 1)),
+        "library": "torch.bincount over the counts capped at BINS", "max_abs_err": 0,
+        **_bound(4 * n + 8 * (BINS + 1), 2 * n)}
+    _emit({"phase": 2, "kernel": "count_histogram", "n": n, "bins": BINS,
+           "n_over": int(exp.freqs[exp.values >= BINS].sum()),
+           "distinct_counts": int(exp.values.size), "equal": True, **row, "gpu": gpu})
+    results["count_histogram"] = row
+    del counts, capped
 
 
 def _shared_parts(g, dtype, dev, m=1 << 26):
@@ -898,12 +942,13 @@ def _assert_equal(got, exp, what):
 def _counters():
     from krust_tpu_torch.ops.codec import encode_dense
     from krust_tpu_torch.ops.fused_codec import encode_windows
+    from krust_tpu_torch.ops.histogram import count_histogram
     from krust_tpu_torch.ops.merge import merge_sorted, merge_sorted_keys
     from krust_tpu_torch.ops.rle import rle_compact
 
     return {"encode_windows": encode_windows, "rle_compact": rle_compact,
             "merge_sorted": merge_sorted, "encode_dense": encode_dense,
-            "merge_sorted_keys": merge_sorted_keys}
+            "merge_sorted_keys": merge_sorted_keys, "count_histogram": count_histogram}
 
 
 def _launches() -> dict:
@@ -2123,6 +2168,9 @@ _REPLACES = {
                      "krust_tpu/ops/pallas_codec.py:145", 7, "tiled row codec"),
     "merge_sorted_keys": ("krust_tpu_torch/csrc/merge.cu",
                           "krust_tpu/ops/pallas_merge.py:248", 2, "merge-path tiled merge"),
+    "count_histogram": ("krust_tpu_torch/csrc/histogram.cu",
+                        "none (krust_tpu takes the histogram on the host, np.unique)", 4,
+                        "new: shared-memory bins, warp-aggregated"),
 }
 
 
@@ -2171,6 +2219,7 @@ def main() -> int:
         _check_dense(rng, gpu, dev, results)
         _check_encode_blocks(rng, gpu, dev, results)
         _check_merge_keys(rng, gpu, dev, results)
+        _check_histogram(g, gpu, dev, results)
         torch.cuda.empty_cache()
         merge_runs_points = _check_merge_runs(g, gpu, dev)
         _check_large_index(gpu, dev)

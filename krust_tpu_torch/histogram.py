@@ -8,7 +8,7 @@ reference: src/histogram.rs:33).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import numpy as np
 
@@ -25,11 +25,31 @@ def compute_histogram_packed(counts: Mapping[int, int]) -> dict[int, int]:
     return _histogram_of_values(counts.values())
 
 
-def compute_histogram_array(count_values: np.ndarray) -> dict[int, int]:
-    """Histogram straight from a device-produced count array (vectorized)."""
+class CountHistogram(NamedTuple):
+    """A count-of-counts already taken, where the counts lay (the card's
+    ``ops.histogram.count_histogram``): ``values`` ascending and distinct,
+    ``freqs`` how many entries hold each; int64 numpy arrays."""
+
+    values: np.ndarray
+    freqs: np.ndarray
+
+    def at_least(self, min_count: int) -> "CountHistogram":
+        """The histogram of the entries whose count is ``min_count`` or more."""
+        keep = self.values >= min_count
+        return CountHistogram(self.values[keep], self.freqs[keep])
+
+
+def compute_histogram_array(count_values) -> dict[int, int]:
+    """Histogram straight from a device-produced count array (vectorized),
+    or from the :class:`CountHistogram` the device took of one."""
+    if isinstance(count_values, CountHistogram):
+        if len(count_values.values) == 0:
+            return {}
+        with span("histogram", entries=int(count_values.freqs.sum()), source="device"):
+            return dict(zip(count_values.values.tolist(), count_values.freqs.tolist()))
     if len(count_values) == 0:
         return {}
-    with span("histogram", entries=len(count_values)):
+    with span("histogram", entries=len(count_values), source="host"):
         vals, freqs = np.unique(np.asarray(count_values), return_counts=True)
         return {int(v): int(f) for v, f in zip(vals, freqs)}
 

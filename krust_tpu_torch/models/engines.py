@@ -27,12 +27,13 @@ import itertools
 import os
 import queue
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
 import torch
 
+from ..histogram import CountHistogram
 from ..io.reader import ParsedStreams
 from ..kmer import INVALID_CODE, unpack_many
 from ..utils.config import EngineConfig, forced_platform
@@ -49,11 +50,14 @@ class PackedCounts:
     ``codes``/``counts`` are uint64 numpy arrays sorted by code. Counts use
     u64 accumulation; saturation at u64::MAX matches the reference contract
     (reference: src/run.rs:569) though it is unreachable for physical inputs.
+    ``histogram`` is the count-of-counts of ``counts`` where the device took
+    it: set only on a result that is one pulled table (one table lifetime).
     """
 
     k: int
     codes: np.ndarray
     counts: np.ndarray
+    histogram: CountHistogram | None = field(default=None, compare=False, repr=False)
 
     @property
     def distinct(self) -> int:
@@ -563,14 +567,16 @@ class BatchEngine:
     def _merge_epochs(epochs, k) -> PackedCounts:
         """The table lifetimes' host tables (each sorted and distinct)
         summed into one; empties ``epochs``, whose entries each merge
-        frees as it goes."""
+        frees as it goes. One pulled table keeps the histogram the device
+        took of it; a sum of lifetimes has none."""
         if len(epochs) > 1:
             with span("merge_lifetimes", lifetimes=len(epochs)):
                 while len(epochs) > 1:
                     epochs.insert(0, _merge_tables(epochs.pop(0), epochs.pop(0)))
-        codes64, counts64 = epochs.pop()
+        table = epochs.pop()
+        codes64, counts64 = table
         trace_event("unpack_kmers", unique_kmers=int(codes64.shape[0]))
-        return PackedCounts(k, codes64, counts64)
+        return PackedCounts(k, codes64, counts64, getattr(table, "histogram", None))
 
     def count(
         self,

@@ -57,6 +57,8 @@ _SIGNATURES = {
     "krust_encode_dense_i64": [_INT, _P, _P, _I64, _I64, _I64, _INT, _I64, _P, _P],
     "krust_encode_codes_i32": [_INT, _P, _P, _I64, _I64, _I64, _INT, _I64, _P, _P, _P],
     "krust_encode_codes_i64": [_INT, _P, _P, _I64, _I64, _I64, _INT, _I64, _P, _P, _P],
+    "krust_count_histogram": [_INT, _P, _I64, _INT, _P, _P],
+    "krust_histogram_over": [_INT, _P, _I64, _INT, _P, _P, _P],
 }
 #: tile and scratch sizes (int64 results)
 _SIZES = {

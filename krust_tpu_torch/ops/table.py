@@ -19,9 +19,10 @@ merge_runs` (``torch.sort`` with the weights following, then the RLE
 kernel). Every window is sorted once, the table once per compaction.
 
 ``_finish`` compacts either table to one device part; ``finalize`` copies
-that part's first n entries to the host. The sharded tables
-(:mod:`krust_tpu_torch.parallel.sharded`) are these tables per rank, and
-exchange the finished part before the pull.
+that part's first n entries to the host, with the histogram of their
+counts taken on the device (:mod:`krust_tpu_torch.ops.histogram`). The
+sharded tables (:mod:`krust_tpu_torch.parallel.sharded`) are these tables
+per rank, and exchange the finished part before the pull.
 
 Kept from the TPU engine: the deferred n-sync (a sort's ``n_unique`` stays
 on the device until the next flush or compaction needs it, so batches
@@ -43,10 +44,12 @@ import os
 import numpy as np
 import torch
 
+from ..histogram import CountHistogram
 from ..utils.config import default_device
 from ..utils.numutil import round_pow2 as _round_pow2
 from ..utils.tracing import span, trace_event
 from .count import merge_runs
+from .histogram import count_histogram
 from .keys import key_dtype, keys_to_codes, sentinel
 from .merge import merge_sorted
 from .rle import rle_compact
@@ -185,16 +188,29 @@ def _part(o_keys, o_cnt, n):
     return o_keys[:keep].clone(), o_cnt[:keep].clone(), n
 
 
-def _pull_table(t_keys, t_cnt, n: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+class PulledTable(tuple):
+    """A pulled table, ``(codes, counts)``, with ``histogram``: the
+    :class:`~krust_tpu_torch.histogram.CountHistogram` of its counts,
+    taken on the table's device before the pull."""
+
+    def __new__(cls, codes: np.ndarray, counts: np.ndarray, histogram: CountHistogram):
+        pulled = super().__new__(cls, (codes, counts))
+        pulled.histogram = histogram
+        return pulled
+
+
+def _pull_table(t_keys, t_cnt, n: int, k: int) -> PulledTable:
     """Device -> host copy of a table's first n entries: (codes u64, counts
-    u64), sorted by code. The counts widen on the device, so the host
-    holds no int32 copy beside the u64 one."""
+    u64), sorted by code, and their count-of-counts (K6, on the int32
+    counts). The counts widen on the device, so the host holds no int32
+    copy beside the u64 one."""
     with span("pull_table", entries=n):
+        histogram = count_histogram(t_cnt[:n])
         keys = t_keys[:n].cpu().numpy()
         counts = t_cnt[:n].to(torch.int64).cpu().numpy().view(np.uint64)
     with span("decode_codes", entries=n):
         codes = keys_to_codes(keys, k)
-    return codes, counts
+    return PulledTable(codes, counts, histogram)
 
 
 def _no_part(k: int, device: torch.device):

@@ -100,6 +100,10 @@ def _digit_groups(counts: np.ndarray):
         yield widths == w, int(w)
 
 
+def _histogram_bytes(hist: Mapping[int, int]) -> bytes:
+    return "".join(f"{c}\t{f}\n" for c, f in hist.items()).encode()
+
+
 def format_packed_counts(
     codes: np.ndarray,
     counts: np.ndarray,
@@ -124,8 +128,7 @@ def format_packed_counts(
         codes, counts = codes[keep], counts[keep]
 
     if fmt is OutputFormat.HISTOGRAM:
-        hist = compute_histogram_array(counts)
-        return "".join(f"{c}\t{f}\n" for c, f in hist.items()).encode()
+        return _histogram_bytes(compute_histogram_array(counts))
 
     if codes.shape[0] == 0:
         return b"[]\n" if fmt is OutputFormat.JSON else b""
@@ -182,7 +185,13 @@ def output_packed(
     The CLI/bulk output path: bytes go straight to the binary stream
     (default ``sys.stdout.buffer``), never through per-k-mer strings.
     """
-    data = format_packed_counts(result.codes, result.counts, result.k, fmt, min_count)
+    if fmt is OutputFormat.HISTOGRAM and result.histogram is not None:
+        # the count-of-counts the device took at the pull: bins below
+        # min_count dropped, as filtering the counts first would
+        hist = result.histogram if min_count <= 1 else result.histogram.at_least(min_count)
+        data = _histogram_bytes(compute_histogram_array(hist))
+    else:
+        data = format_packed_counts(result.codes, result.counts, result.k, fmt, min_count)
     if out is None:
         # default stdout: bytes straight to the binary layer
         sys.stdout.buffer.write(data)

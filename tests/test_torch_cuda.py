@@ -27,6 +27,7 @@ from krust_tpu_torch.ops.count import (
 from krust_tpu_torch.ops.merge import (
     merge_sorted, merge_sorted_keys, merge_sorted_keys_plain, merge_sorted_plain,
 )
+from krust_tpu_torch.ops.histogram import BINS, count_histogram, count_histogram_plain
 from krust_tpu_torch.ops.rle import rle_compact, rle_compact_plain
 from krust_tpu_torch.ops import table as table_mod
 from krust_tpu_torch.ops.table import DeviceTable
@@ -728,3 +729,68 @@ def test_forms_ch_is_the_kernels_int64_tile(dev):
 
     lib = _cuda.library()
     assert forms.CH == lib.krust_merge_tile(8) == lib.krust_rle_tile(8)
+
+
+def _pareto_counts(n, seed, dev):
+    """n skewed int32 counts on the card, most 1 and a tail past ``BINS``:
+    floor(u^(-1/1.5)), a count of 8192 or more about once in 7.4e5."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+    return torch.clamp(torch.floor(u.pow(-1 / 1.5)), max=2**31 - 1).to(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["assembly", "past_bins", "unaligned"])
+def test_count_histogram_kernel_matches_plain(dev, case):
+    """K6 against its plain version, exactly: ~113M skewed counts (the
+    assembly cell's table, with a natural tail past the bins, so the
+    overflow launch runs); a million counts, every third one at the bins'
+    edge, negative or near 2^31 - 1; and short views
+    that start off a 16-byte boundary (the head and tail lanes)."""
+    if case == "assembly":
+        inputs = [_pareto_counts(112_900_000, 21, dev)]
+    elif case == "past_bins":
+        c = _pareto_counts(1 << 20, 22, dev)
+        odd = torch.tensor([BINS, BINS + 1, 2**31 - 1, -7, BINS - 1, 2**31 - 2],
+                           dtype=torch.int32, device=dev)
+        c[::3] = odd[torch.arange(c[::3].numel(), device=dev) % odd.numel()]
+        inputs = [c]
+    else:
+        base = _pareto_counts(4096, 23, dev)
+        base[5] = 2**31 - 1
+        inputs = [base[off:off + n] for off in (1, 2, 3) for n in (1, 3, 5, 31, 33, 1000)]
+    for counts in inputs:
+        got = count_histogram(counts)
+        torch.cuda.synchronize()
+        exp = count_histogram_plain(counts.cpu())
+        np.testing.assert_array_equal(got.values, exp.values)
+        np.testing.assert_array_equal(got.freqs, exp.freqs)
+        if case != "unaligned":
+            assert int(exp.values[-1]) >= BINS  # the overflow launch ran
+            assert int(exp.freqs.sum()) == counts.numel()
+
+
+@pytest.mark.parametrize("epoch_sort", [True, False], ids=["epoch", "lsm"])
+@pytest.mark.parametrize("lifetimes", [1, 3])
+def test_count_histogram_launches_once_a_pull(dev, monkeypatch, epoch_sort, lifetimes):
+    """Every table pull of a count on the card launches K6 once; one
+    lifetime's result carries the histogram (equal to the host's of its
+    counts), a count of several carries none."""
+    from krust_tpu_torch.histogram import compute_histogram_array
+
+    if lifetimes > 1:
+        monkeypatch.setattr(table_mod, "EPOCH_WINDOW_LIMIT", 3 * 8 * 256)
+    pulls = []
+    pull = table_mod._pull_table
+    monkeypatch.setattr(table_mod, "_pull_table", lambda *a: pulls.append(1) or pull(*a))
+    s = _sharded_stream(21, False)
+    before = count_histogram.launches
+    cfg = EngineConfig(block_windows=256, batch_rows=8, device=dev, use_epoch_sort=epoch_sort)
+    got = BatchEngine(cfg).count(s, 21)
+    exp = NativeEngine().count(s, 21)
+    np.testing.assert_array_equal(got.counts, exp.counts)
+    assert count_histogram.launches - before == len(pulls)
+    assert (len(pulls) == 1) == (lifetimes == 1)
+    if lifetimes == 1:
+        assert compute_histogram_array(got.histogram) == compute_histogram_array(exp.counts)
+    else:
+        assert got.histogram is None
