@@ -26,6 +26,16 @@ of their host's GPUs; either way, one table slot per device.
    first device, and the rank pulls it: the whole table in one process,
    the rank's hash ranges in a group.
 
+Spans (``utils.tracing.span``): ``sharded_encode`` (a batch, in the
+feed), ``sharded_exchange`` (the whole exchange; its fields ``devices``,
+``sent_bytes``, ``process_bytes`` and ``wire_bytes``), inside it
+``exchange_cut`` (the first ``_by_owner`` through the one host sync of
+the size matrix) and ``exchange_merge`` (one a destination slot: its
+pieces' copies, its K3 merges and K2, through the sync on its entry
+count), and ``gather_shards`` (the K3 merges of the shards on the first
+device, through a sync of that device, so its seconds are the gather's
+and not its launches'); event ``shard_sizes`` (one size a slot).
+
 An epoch ends before the next group of batches could bring the table's
 windows to ``EPOCH_WINDOW_LIMIT``: a batch charges every process a full
 batch, ranks x ``batch_rows`` x ``block_windows`` windows, and a group is
@@ -185,18 +195,19 @@ def _exchange(parts, mesh: Mesh, k: int):
         trace_event("shard_sizes", sizes=[parts[0][2]])
         return [parts.pop()]
     with span("sharded_exchange", devices=mesh.size) as fields:
-        cut = []
-        while parts:  # each part dies once its ordered copy exists
-            cut.append(_by_owner(parts.pop(0), mesh.size))
-        sizes = torch.stack([c[2].to(mesh.device) for c in cut])  # [L, world * L]
-        if mesh.group is not None:  # [world, L, L]: what each rank's slots send ours
-            got = torch.empty(mesh.world, n_local, n_local, dtype=sizes.dtype,
-                              device=mesh.device)
-            dist.all_to_all_single(
-                got, sizes.view(n_local, mesh.world, n_local).transpose(0, 1).contiguous(),
-                group=mesh.group)
-            sizes = torch.cat([sizes.flatten(), got.flatten()])
-        flat = sizes.flatten().tolist()  # the one host sync
+        with span("exchange_cut", slots=mesh.size):
+            cut = []
+            while parts:  # each part dies once its ordered copy exists
+                cut.append(_by_owner(parts.pop(0), mesh.size))
+            sizes = torch.stack([c[2].to(mesh.device) for c in cut])  # [L, world * L]
+            if mesh.group is not None:  # [world, L, L]: what each rank's slots send ours
+                got = torch.empty(mesh.world, n_local, n_local, dtype=sizes.dtype,
+                                  device=mesh.device)
+                dist.all_to_all_single(
+                    got, sizes.view(n_local, mesh.world, n_local).transpose(0, 1).contiguous(),
+                    group=mesh.group)
+                sizes = torch.cat([sizes.flatten(), got.flatten()])
+            flat = sizes.flatten().tolist()  # the one host sync
         send = [flat[s * mesh.size : (s + 1) * mesh.size] for s in range(n_local)]
         at = n_local * mesh.size
         recv = [[flat[at + (r * n_local + s) * n_local : at + (r * n_local + s + 1) * n_local]
@@ -214,17 +225,18 @@ def _exchange(parts, mesh: Mesh, k: int):
         shards = []
         for d, dev in enumerate(devices):
             g = rank * n_local + d
-            mine = [(keys[g], cnt[g]) for keys, cnt in pieces]
-            if mesh.world > 1:
-                mine += _cross(pieces, send, recv, d, mesh)
-            merged = _merge_sorted_all(mine, dev)
-            if merged is None:
-                shards.append(_no_part(k, dev))
-                continue
-            o_keys, o_cnt, n_dev = rle_compact(*merged)
-            del merged
-            shards.append(_part(o_keys, o_cnt, int(n_dev.item())))
-            del o_keys, o_cnt
+            with span("exchange_merge", slot=g):
+                mine = [(keys[g], cnt[g]) for keys, cnt in pieces]
+                if mesh.world > 1:
+                    mine += _cross(pieces, send, recv, d, mesh)
+                merged = _merge_sorted_all(mine, dev)
+                if merged is None:
+                    shards.append(_no_part(k, dev))
+                    continue
+                o_keys, o_cnt, n_dev = rle_compact(*merged)
+                del merged
+                shards.append(_part(o_keys, o_cnt, int(n_dev.item())))
+                del o_keys, o_cnt
     trace_event("shard_sizes", sizes=[s[2] for s in shards])
     return shards
 
@@ -232,8 +244,8 @@ def _exchange(parts, mesh: Mesh, k: int):
 def _gather(shards, device, k: int):
     """The slots' shards, disjoint hash ranges each key-sorted, as one
     key-sorted table ``(keys, counts, n)`` on ``device`` (K3 merges; no
-    key repeats, so no K2); one shard is the table as it is. Empties
-    ``shards``."""
+    key repeats, so no K2), finished on a CUDA ``device`` before it
+    returns; one shard is the table as it is. Empties ``shards``."""
     if len(shards) == 1:
         return shards.pop()
     n = sum(s[2] for s in shards)
@@ -241,6 +253,8 @@ def _gather(shards, device, k: int):
         views = [(keys[:m], cnt[:m]) for keys, cnt, m in shards]
         shards.clear()  # each shard dies once its merge has read it
         merged = _merge_sorted_all(views, device)
+        if device.type == "cuda":  # the span ends with the merges, not their launches
+            torch.cuda.synchronize(device)
     if merged is None:
         return _no_part(k, device)
     return merged[0], merged[1], n
