@@ -794,3 +794,57 @@ def test_count_histogram_launches_once_a_pull(dev, monkeypatch, epoch_sort, life
         assert compute_histogram_array(got.histogram) == compute_histogram_array(exp.counts)
     else:
         assert got.histogram is None
+
+
+def _card_table(k, n, dev, seed=5):
+    """A finished table on the card: n distinct keys ascending (bit 63 of
+    the code set on some at k = 32), counts up to 2^31 - 1, sentinel padding
+    past n."""
+    g = torch.Generator(device=dev).manual_seed(seed + k)
+    dtype = torch.int32 if k <= 16 else torch.int64
+    lo, top = torch.iinfo(dtype).min, torch.iinfo(dtype).max  # top: the sentinel
+    keys = torch.unique(torch.randint(lo, min(lo + (1 << (2 * k)), top), (n + n // 16,),
+                                      generator=g, device=dev, dtype=dtype))[:n]
+    assert keys.numel() == n
+    counts = torch.randint(1, 9000, (n,), generator=g, device=dev, dtype=torch.int32)
+    counts[0] = 2**31 - 1
+    pad = 1000
+    keys = torch.cat([keys, torch.full((pad,), torch.iinfo(dtype).max, dtype=dtype, device=dev)])
+    return keys, torch.cat([counts, torch.zeros(pad, dtype=torch.int32, device=dev)])
+
+
+@pytest.mark.parametrize("k", [16, 21, 32])
+def test_pull_from_the_card_matches_the_cpu_pull(dev, k):
+    """A table on the card pulls through the pinned ring to the same bytes
+    as the same table pulled on the CPU, histogram included, in
+    ceil(entries / chunk) chunks a pull."""
+    n = 2 * table_mod.PULL_CHUNK_ENTRIES + 12_345
+    t_keys, t_cnt = _card_table(k, n, dev)
+    before = table_mod._copy_decode.chunks
+    got = table_mod._pull_table(t_keys, t_cnt, n, k)
+    assert table_mod._copy_decode.chunks - before == -(-n // table_mod.PULL_CHUNK_ENTRIES)
+    exp = table_mod._pull_table(t_keys.cpu(), t_cnt.cpu(), n, k)
+    assert got[0].tobytes() == exp[0].tobytes()
+    assert got[1].tobytes() == exp[1].tobytes()
+    np.testing.assert_array_equal(got.histogram.values, exp.histogram.values)
+    np.testing.assert_array_equal(got.histogram.freqs, exp.histogram.freqs)
+    if k == 32:
+        assert (got[0] >> np.uint64(63)).any()
+
+
+def test_the_pull_ring_is_reused_and_never_grows(dev):
+    """Two pulls of different sizes use the same pinned buffers, at the
+    same size, and read their chunks' counter each."""
+    small, large = 1000, 3 * table_mod.PULL_CHUNK_ENTRIES + 7
+    t_keys, t_cnt = _card_table(21, large, dev)
+    table_mod._pull_table(t_keys, t_cnt, small, 21)
+    held = [b for slot in table_mod._RING for b in slot]
+    buffers = [(id(b), b.data_ptr(), b.numel()) for b in held]
+    assert len(held) == 4 and all(b.is_pinned() for b in held)
+    before = table_mod._copy_decode.chunks
+    got = table_mod._pull_table(t_keys, t_cnt, large, 21)
+    assert table_mod._copy_decode.chunks - before == 4
+    assert [(id(b), b.data_ptr(), b.numel()) for slot in table_mod._RING for b in slot] == buffers
+    assert all(n == table_mod.PULL_CHUNK_ENTRIES for _, _, n in buffers)
+    want = table_mod._pull_table(t_keys.cpu(), t_cnt.cpu(), large, 21)
+    assert got[0].tobytes() == want[0].tobytes() and got[1].tobytes() == want[1].tobytes()

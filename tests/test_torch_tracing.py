@@ -4,8 +4,9 @@ A count through ``api.count_with_input`` emits ``flat_scan`` (the flat
 route's scan, also where it ends in the dense route), ``feed_pack`` and
 ``feed_stage`` (the feed: on the ``krust-feed`` thread, on the caller's at
 ``feed_depth`` 0), ``feed_wait`` (the caller waiting on the feed; none at
-depth 0) and ``decode_codes`` (after ``pull_table``, beside it); the
-histogram output emits ``histogram``. The caller's spans nest inside the
+depth 0) and ``pull_table`` (the pull with the keys' decode inside it: no
+``decode_codes`` span of its own); the histogram output emits
+``histogram``. The caller's spans nest inside the
 caller's own profiler range, which the benchmark's idle attribution reads,
 and a collector changes no result.
 """
@@ -31,7 +32,7 @@ import oracle
 
 K = 15
 GEOMETRY = dict(block_windows=256, batch_rows=8)
-MAIN = ("flat_scan", "feed_wait", "decode_codes")
+MAIN = ("flat_scan", "feed_wait", "pull_table")
 FEED = ("feed_pack", "feed_stage")
 #: share of bases that are N on each route: the dense one is past 1/32
 N_SHARE = {"flat": 0.002, "dense": 0.08}
@@ -98,7 +99,7 @@ def test_a_count_emits_the_engine_spans(fasta, depth):
     with _Spans() as spans:
         got = _count(path, depth)
     assert got.to_string_dict() == oracle.count_sequences(records, K)
-    for name in ("flat_scan", "decode_codes"):
+    for name in ("flat_scan", "pull_table"):
         assert spans.threads(name) == {caller}, name
     feeder = "krust-feed" if depth > 0 else caller
     for name in FEED:
@@ -114,8 +115,9 @@ def test_a_count_emits_the_engine_spans(fasta, depth):
     else:
         assert spans.count("feed_wait") == 0
     names = [n for n, _ in spans.seen]
-    # decode_codes follows pull_table, as its sibling, not inside it
-    assert names.index("decode_codes") == names.index("pull_table") + 1
+    # the decode runs inside the one pull, which closes the count's spans
+    assert names.count("pull_table") == 1 and "decode_codes" not in names
+    assert names.index("pull_table") > names.index("flat_scan")
 
 
 def test_the_histogram_output_emits_its_span(fasta):
