@@ -227,7 +227,7 @@ def count_kmers_sharded(
     the file over every GPU this process sees (or ``mesh``'s devices, or
     ``config.device`` alone when it names one): each GPU counts its share
     of the batches in its own table, the tables exchange their entries by a
-    hash of the key once per epoch, and the result is the whole exact
+    hash of the key once a table lifetime, and the result is the whole exact
     table. Across hosts, start one process per host or one per GPU
     (``torchrun --nproc-per-node``) and call
     :func:`krust_tpu_torch.parallel.mesh.init_distributed` first: every

@@ -86,50 +86,33 @@ class PackedCounts:
 
 
 class _HostAccumulator:
-    """Merges per-batch (codes, counts) partials into one sorted table.
-
-    Compacts lazily: partials concatenate until ``threshold`` entries, then a
-    sort-merge collapses duplicates — amortized O(n log n) host work that
-    overlaps with device compute of subsequent batches.
-    """
+    """Sums (codes, counts) partials, each sorted and distinct, into one
+    such table: they wait until more than ``threshold`` entries are held,
+    then :func:`_sum_tables` merges them (the sum counts towards the next
+    threshold), and :meth:`result` merges what is left."""
 
     def __init__(self, threshold: int = 64_000_000):
-        self._codes: list[np.ndarray] = []
-        self._counts: list[np.ndarray] = []
+        self._parts: list[tuple[np.ndarray, np.ndarray]] = []
         self._pending = 0
         self._threshold = threshold
 
     def add(self, codes: np.ndarray, counts: np.ndarray) -> None:
         if codes.shape[0] == 0:
             return
-        self._codes.append(np.asarray(codes, np.uint64))
-        self._counts.append(np.asarray(counts, np.uint64))
+        self._parts.append((np.asarray(codes, np.uint64), np.asarray(counts, np.uint64)))
         self._pending += codes.shape[0]
         if self._pending > self._threshold:
             self._compact()
 
     def _compact(self) -> None:
-        merged = _merge_partials(self._codes, self._counts)
-        self._codes = [merged[0]]
-        self._counts = [merged[1]]
-        self._pending = merged[0].shape[0]
+        if self._parts:
+            self._parts.append(_sum_tables(self._parts))
+            self._pending = self._parts[0][0].shape[0]
 
     def result(self) -> tuple[np.ndarray, np.ndarray]:
         self._compact()
-        return self._codes[0], self._counts[0]
-
-
-def _merge_partials(
-    codes_list: list[np.ndarray], counts_list: list[np.ndarray]
-) -> tuple[np.ndarray, np.ndarray]:
-    if not codes_list:
-        return np.zeros(0, np.uint64), np.zeros(0, np.uint64)
-    codes = np.concatenate(codes_list)
-    counts = np.concatenate(counts_list)
-    uniq, inverse = np.unique(codes, return_inverse=True)
-    sums = np.zeros(uniq.shape[0], dtype=np.uint64)
-    np.add.at(sums, inverse, counts)
-    return uniq, sums
+        return self._parts[0] if self._parts else (np.zeros(0, np.uint64),
+                                                    np.zeros(0, np.uint64))
 
 
 def _merge_tables(a, b) -> tuple[np.ndarray, np.ndarray]:
@@ -160,6 +143,19 @@ def _merge_tables(a, b) -> tuple[np.ndarray, np.ndarray]:
     counts[dest] = b_counts[new]
     counts[keep] = a_counts
     return codes, counts
+
+
+def _sum_tables(tables: list) -> tuple[np.ndarray, np.ndarray]:
+    """The sum of host tables (each sorted and distinct) by
+    :func:`_merge_tables`, a level of pairs at a time, so n tables of N
+    entries cost O(N log n); empties ``tables``, each leaving the list as
+    its merge takes it."""
+    while len(tables) > 1:
+        level = []
+        while len(tables) > 1:
+            level.append(_merge_tables(tables.pop(0), tables.pop(0)))
+        tables[:] = level + tables
+    return tables.pop()
 
 
 def _quality_threshold(min_quality: int | None) -> int | None:
@@ -450,6 +446,61 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+class _Lifetimes:
+    """A count's table (one device's, or a sharded count's slots) and the
+    host tables pulled from it: the one owner of the rule that a table
+    lifetime, its counts int32, holds fewer than ``EPOCH_WINDOW_LIMIT``
+    windows. The rule is checked at each group's first batch, a group
+    being a batch on each of the table's ``devices``, so every rank of a
+    process group pulls (a collective there) at the same batch. A batch
+    charges ``charge`` windows (None: its own); the LSM table
+    (``weighted``) takes weights beside its keys, None, one a window."""
+
+    def __init__(self, table, weighted: bool, charge: int | None = None):
+        self.table = table
+        self.devices = getattr(table, "devices", None) or (table._device,)
+        self._weights = (None,) if weighted else ()
+        self._charge = charge
+        self._windows = 0  # charged to the lifetime the table holds
+        self.batches = 0  # charged to the count
+        self._pulled: list = []
+
+    def charge(self, windows: int = 0) -> int:
+        """Charge the next batch (added next, or one this rank lacks) and
+        return its windows; first pull the table if the batch opens a
+        group that could reach the limit."""
+        from ..ops import table as table_mod
+
+        windows = self._charge or windows
+        slots = len(self.devices)
+        if self.batches % slots == 0 and (
+            self._windows + slots * windows >= table_mod.EPOCH_WINDOW_LIMIT
+        ):
+            self._pulled.append(self.table.finalize())  # int32 count headroom
+            self._windows = 0
+        self._windows += windows
+        self.batches += 1
+        return windows
+
+    def add(self, keys: torch.Tensor, windows: int) -> None:
+        """Add a charged batch's window keys to the table."""
+        self.table.add(keys, *self._weights, windows)
+
+    def result(self, k: int) -> PackedCounts:
+        """Pull the last lifetime and sum the lifetimes' host tables with
+        :func:`_sum_tables`. One pulled table keeps the histogram the
+        device took of it; a sum of several has none."""
+        pulled = self._pulled
+        pulled.append(self.table.finalize())
+        histogram = pulled[0].histogram if len(pulled) == 1 else None
+        if len(pulled) > 1:
+            with span("merge_lifetimes", lifetimes=len(pulled)):
+                pulled.append(_sum_tables(pulled))
+        codes64, counts64 = pulled.pop()
+        trace_event("unpack_kmers", unique_kmers=int(codes64.shape[0]))
+        return PackedCounts(k, codes64, counts64, histogram)
+
+
 class BatchEngine:
     """Device engine: stream fixed-shape batches through the codec kernel
     into the count table (epoch-sort, or the LSM table when
@@ -466,34 +517,29 @@ class BatchEngine:
         return table(k, device=self.device)
 
     def _feed_streams(
-        self, streams, k, min_quality, table, epochs, on_windows, charge=None,
-        batch_span="encode_count_batch", devices=None,
-    ) -> int:
-        """Feed one parsed stream's batches into ``table`` (shared by the
-        eager and chunked ingest paths and the sharded count); returns the
-        number of batches.
+        self, streams, k, min_quality, lifetimes: _Lifetimes, on_windows,
+        batch_span="encode_count_batch",
+    ) -> None:
+        """Feed one parsed stream's batches into ``lifetimes``' table (shared
+        by the eager and chunked ingest paths and the sharded count).
 
         The flat path while invalid bases are sparse (K1 on stream slices
         plus invalid positions); the dense path (K4 on haloed 2-bit rows
         plus an invalid bitmask) for dirtier streams, for block geometries
         the flat layout cannot hold and under ``use_flat=False``, as
         ``krust_tpu`` routes.
-        Batch i is staged on ``devices[i % n]`` (default: the engine's
-        device alone), each device's copies on its own current stream, and
-        the table takes the batches in that order. Each batch charges
-        ``charge`` windows (default: its own rows x ``block_windows``) to the
-        table's epoch; ``table.finalize()`` is appended to ``epochs`` before
-        a group of n batches could reach ``EPOCH_WINDOW_LIMIT``. Each
-        batch's encode and add is one ``batch_span``; the flat route's scan,
-        which may end in the dense route, one ``flat_scan``.
+        Batch i is staged on ``devices[i % n]``, the table's devices, each
+        device's copies on its own current stream, and the table takes the
+        batches in that order; ``lifetimes`` charges each batch before its
+        add. Each batch's encode and add is one ``batch_span``; the flat
+        route's scan, which may end in the dense route, one ``flat_scan``.
         """
         from ..io.packer import flat_batches, pack_buffer_2bit
-        from ..ops import table as table_mod
         from ..ops.codec import encode_dense
         from ..ops.fused_codec import TAIL_BYTES, encode_windows
 
         cfg = self.config
-        devices = devices or (self.device,)
+        devices = lifetimes.devices
         thr = _quality_threshold(min_quality) if streams.qual is not None else None
         qual_stream = streams.qual if thr is not None else None
         streams_of = {d: torch.cuda.current_stream(d) for d in devices if d.type == "cuda"}
@@ -545,38 +591,13 @@ class BatchEngine:
             def rows_and_windows(b):
                 return b.packed2.shape[0], b.n_windows
 
-        # the LSM table takes weights beside the keys: None, one a window
-        weights = () if cfg.use_epoch_sort else (None,)
-        n_batches = 0
         with _Feed(batches, stage, cfg.feed_depth) as staged:
             for arrays, batch in staged:
                 rows, windows = rows_and_windows(batch)
-                batch_windows = charge or rows * batch.block_windows
-                if n_batches % len(devices) == 0 and (
-                    table.windows_this_epoch + len(devices) * batch_windows
-                    >= table_mod.EPOCH_WINDOW_LIMIT
-                ):
-                    epochs.append(table.finalize())  # int32 count headroom
+                charged = lifetimes.charge(rows * batch.block_windows)
                 with span(batch_span, rows=rows):
-                    table.add(step(arrays, batch), *weights, batch_windows)
+                    lifetimes.add(step(arrays, batch), charged)
                 on_windows(windows)
-                n_batches += 1
-        return n_batches
-
-    @staticmethod
-    def _merge_epochs(epochs, k) -> PackedCounts:
-        """The table lifetimes' host tables (each sorted and distinct)
-        summed into one; empties ``epochs``, whose entries each merge
-        frees as it goes. One pulled table keeps the histogram the device
-        took of it; a sum of lifetimes has none."""
-        if len(epochs) > 1:
-            with span("merge_lifetimes", lifetimes=len(epochs)):
-                while len(epochs) > 1:
-                    epochs.insert(0, _merge_tables(epochs.pop(0), epochs.pop(0)))
-        table = epochs.pop()
-        codes64, counts64 = table
-        trace_event("unpack_kmers", unique_kmers=int(codes64.shape[0]))
-        return PackedCounts(k, codes64, counts64, getattr(table, "histogram", None))
 
     def count(
         self,
@@ -586,16 +607,14 @@ class BatchEngine:
         progress: ProgressCallback | None = None,
         tracker: ProgressTracker | None = None,
     ) -> PackedCounts:
-        table = self._make_table(k)
-        epochs: list[tuple[np.ndarray, np.ndarray]] = []
+        lifetimes = _Lifetimes(self._make_table(k), not self.config.use_epoch_sort)
         total_windows = max(streams.codes.shape[0] - k + 1, 0)
         pacer = _ProgressPacer(
             tracker, progress, streams.n_records, streams.n_bases, total_windows
         )
-        self._feed_streams(streams, k, min_quality, table, epochs, pacer.step)
+        self._feed_streams(streams, k, min_quality, lifetimes, pacer.step)
         pacer.finish()
-        epochs.append(table.finalize())
-        return self._merge_epochs(epochs, k)
+        return lifetimes.result(k)
 
     def count_chunked(
         self,
@@ -613,16 +632,14 @@ class BatchEngine:
         O(chunk + device tables) regardless of input size. Exact: chunks cut
         at record boundaries, and the table accumulates across chunks.
         """
-        table = self._make_table(k)
-        epochs: list[tuple[np.ndarray, np.ndarray]] = []
+        lifetimes = _Lifetimes(self._make_table(k), not self.config.use_epoch_sort)
         for streams in chunks:
-            self._feed_streams(streams, k, min_quality, table, epochs, lambda w: None)
+            self._feed_streams(streams, k, min_quality, lifetimes, lambda w: None)
             if tracker is not None:
                 tracker.record_batch(streams.n_records, streams.n_bases)
                 if progress is not None:
                     progress(tracker.snapshot())
-        epochs.append(table.finalize())
-        return self._merge_epochs(epochs, k)
+        return lifetimes.result(k)
 
 # --- sequential engine -------------------------------------------------------------
 

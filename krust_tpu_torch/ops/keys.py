@@ -47,22 +47,22 @@ def split_keys(keys: torch.Tensor, k: int, valid: torch.Tensor):
 
 
 def _np_bias(k: int):
-    return (np.uint32(0x80000000), np.int32) if k <= 16 else (
-        np.uint64(1 << 63), np.int64
-    )
+    """The key format in numpy: (unsigned view of a key, the bias, the
+    signed key dtype); a key's unsigned view XOR the bias is its code."""
+    if k <= 16:
+        return np.uint32, np.uint32(0x80000000), np.int32
+    return np.uint64, np.uint64(1 << 63), np.int64
 
 
 def codes_to_keys(codes: np.ndarray, k: int) -> np.ndarray:
     """uint64 canonical codes (all-ones = sentinel) -> biased keys."""
-    bias, dt = _np_bias(k)
-    udt = np.uint32 if k <= 16 else np.uint64
+    udt, bias, dt = _np_bias(k)
     return (codes.astype(udt) ^ bias).view(dt)
 
 
 def keys_to_codes(keys: np.ndarray, k: int) -> np.ndarray:
     """Biased keys -> uint64 codes (the inverse of :func:`codes_to_keys`)."""
-    bias, _ = _np_bias(k)
-    udt = np.uint32 if k <= 16 else np.uint64
+    udt, bias, _ = _np_bias(k)
     return (keys.view(udt) ^ bias).astype(np.uint64, copy=False)
 
 

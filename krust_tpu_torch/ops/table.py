@@ -37,7 +37,9 @@ the 4M-entry bucket padding of a compaction's input (it bounds jit
 recompiles; nothing here compiles).
 
 Counts are int32: a table sees fewer than ``EPOCH_WINDOW_LIMIT`` = 2^31
-windows before the engine flushes it to the host's u64 accumulator.
+windows (a table lifetime) before the engine pulls it, and the engine sums
+the lifetimes' pulled tables in u64 (``models.engines._Lifetimes``, the
+rule's one owner).
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from ..utils.numutil import round_pow2 as _round_pow2
 from ..utils.tracing import span, trace_event
 from .count import merge_runs
 from .histogram import count_histogram
-from .keys import key_dtype, sentinel
+from .keys import _np_bias, key_dtype, sentinel
 from .merge import merge_sorted
 from .rle import rle_compact
 
@@ -275,9 +277,9 @@ def _host_chunks(t_keys: torch.Tensor, t_cnt: torch.Tensor, step: int):
 
 
 def _decode_part(keys, cnt, codes, counts, bias) -> None:
-    """Biased keys -> u64 codes (k <= 16: u32 keys widen, their bias
-    0x80000000 XORs the same in 64 bits) and int32 counts -> u64, written
-    into the result's slices."""
+    """Biased keys, in their unsigned view, -> u64 codes (k <= 16: u32
+    keys widen, their bias XORs the same in 64 bits) and int32 counts ->
+    u64, written into the result's slices."""
     np.bitwise_xor(keys, bias, out=codes)
     np.copyto(counts.view(np.int64), cnt)
 
@@ -289,7 +291,8 @@ def _copy_decode(t_keys, t_cnt, codes: np.ndarray, counts: np.ndarray, k: int):
     n = codes.size
     step = PULL_CHUNK_ENTRIES
     threads = max(1, min(len(os.sched_getaffinity(0)), -(-min(n, step) // PULL_PART_ENTRIES)))
-    udt, bias = (np.uint32, np.uint64(0x80000000)) if k <= 16 else (np.uint64, np.uint64(1 << 63))
+    udt, bias, _ = _np_bias(k)
+    bias = np.uint64(bias)  # XORed into the u64 result: u32 keys widen in the XOR
     # the pool is left first: no thread reads a slot once the ring is released
     with closing(_host_chunks(t_keys, t_cnt, step)) as staged, \
             ThreadPoolExecutor(threads, "krust-pull") as pool:

@@ -1,4 +1,4 @@
-"""Multi-GPU counting: a table per device slot, one hash-sharded exchange per epoch.
+"""Multi-GPU counting: a table per device slot, one hash-sharded exchange a table lifetime.
 
 Counterpart of ``krust_tpu/parallel/sharded.py``. A mesh
 (:mod:`krust_tpu_torch.parallel.mesh`) is one process over every local GPU,
@@ -11,7 +11,7 @@ of their host's GPUs; either way, one table slot per device.
    :class:`EpochShardedTable` (the default) or the LSM
    :class:`ShardedTable`. A process deals its batches to its slots in
    turn. Merges are local; nothing crosses devices while batches stream.
-2. **One hash-sharded exchange per epoch** (:func:`_exchange`, one path for
+2. **One hash-sharded exchange a lifetime** (:func:`_exchange`, one path for
    every form of mesh). Slot l of rank r is global slot ``r * L + l``,
    ``krust_tpu``'s device order (its mesh takes ``jax.devices()`` in
    order, process by process); each slot's distinct (key, count) entries
@@ -36,10 +36,11 @@ count), and ``gather_shards`` (the K3 merges of the shards on the first
 device, through a sync of that device, so its seconds are the gather's
 and not its launches'); event ``shard_sizes`` (one size a slot).
 
-An epoch ends before the next group of batches could bring the table's
-windows to ``EPOCH_WINDOW_LIMIT``: a batch charges every process a full
+A table lifetime ends before the next group of batches could bring the
+table's windows to ``EPOCH_WINDOW_LIMIT``, by the engine's rule
+(``models.engines._Lifetimes``): a batch charges every process a full
 batch, ranks x ``batch_rows`` x ``block_windows`` windows, and a group is
-a batch on every slot of the rank. One epoch so holds fewer than
+a batch on every slot of the rank. One lifetime so holds fewer than
 ``EPOCH_WINDOW_LIMIT`` windows over all slots, and a key's count, summed
 by the exchange, stays an int32. In a process group what must agree
 across ranks is the sequence of collectives: every rank feeds the same
@@ -64,8 +65,7 @@ import torch.distributed as dist
 
 from ..io.packer import batch_count
 from ..io.reader import ParsedStreams
-from ..models.engines import BatchEngine, PackedCounts, _ProgressPacer
-from ..ops import table as table_mod
+from ..models.engines import BatchEngine, PackedCounts, _Lifetimes, _ProgressPacer
 from ..ops.merge import merge_sorted
 from ..ops.rle import rle_compact
 from ..ops.table import DeviceTable, EpochTable, _no_part, _part, _pull_table
@@ -319,7 +319,7 @@ class EpochShardedTable(_Exchanged, EpochTable):
 class _Slots:
     """The tables of this process's slots, fed as one table: the feed
     stages batch i on ``devices[i % n]`` and :meth:`add` hands it to slot
-    i mod n. :meth:`finalize` ends an epoch: the exchange
+    i mod n. :meth:`finalize` ends a table lifetime: the exchange
     (:func:`_exchange`), the gather of this rank's shards on its first
     device and one pull."""
 
@@ -329,7 +329,6 @@ class _Slots:
         self.devices = mesh.devices
         self._tables = [table_cls(k, mesh, slot=i) for i in range(len(mesh.devices))]
         self._next = 0
-        self.windows_this_epoch = 0
 
     def add(self, keys: torch.Tensor, *rest) -> None:
         """One batch, on the next slot's device; ``rest`` is what the
@@ -339,14 +338,12 @@ class _Slots:
                              f"the batch on {keys.device}")
         self._tables[self._next].add(keys, *rest)
         self._next = (self._next + 1) % len(self._tables)
-        self.windows_this_epoch += rest[-1]
 
     def finalize(self):
-        """End the epoch, a collective in a process group: this rank's hash
-        ranges on the host, (codes u64, counts u64) sorted by code. The
-        slots are empty afterwards."""
+        """End the lifetime, a collective in a process group: this rank's
+        hash ranges on the host, (codes u64, counts u64) sorted by code.
+        The slots are empty afterwards."""
         self._next = 0
-        self.windows_this_epoch = 0
         shards = _exchange([t._finish() for t in self._tables], self._mesh, self._k)
         return _pull_table(*_gather(shards, self.devices[0], self._k), self._k)
 
@@ -382,26 +379,19 @@ def count_sharded(
     cfg = config or EngineConfig()
     mesh = mesh or make_mesh(device=cfg.device)
     engine = BatchEngine(replace(cfg, device=mesh.device))
-    table = _Slots(k, mesh, EpochShardedTable if cfg.use_epoch_sort else ShardedTable)
-    n_bases = streams.codes.shape[0]
-    steps = _all_max(mesh, batch_count(n_bases, k, cfg.block_windows, cfg.batch_rows))
     # a batch charges a full batch on every process: a group of a batch on
     # every slot of the rank charges every slot of the mesh one
-    charge = mesh.world * cfg.batch_rows * cfg.block_windows
-    n_local = len(mesh.devices)
+    lifetimes = _Lifetimes(
+        _Slots(k, mesh, EpochShardedTable if cfg.use_epoch_sort else ShardedTable),
+        not cfg.use_epoch_sort, mesh.world * cfg.batch_rows * cfg.block_windows,
+    )
+    n_bases = streams.codes.shape[0]
+    steps = _all_max(mesh, batch_count(n_bases, k, cfg.block_windows, cfg.batch_rows))
     pacer = _ProgressPacer(
         tracker, progress, streams.n_records, streams.n_bases, max(n_bases - k + 1, 0)
     )
-    epochs = []
-    fed = engine._feed_streams(
-        streams, k, min_quality, table, epochs, pacer.step, charge, "sharded_encode",
-        mesh.devices,
-    )
-    for i in range(fed, steps):  # ran dry: the feed's exchange steps, batch by batch
-        if i % n_local == 0 and (table.windows_this_epoch + n_local * charge
-                                 >= table_mod.EPOCH_WINDOW_LIMIT):
-            epochs.append(table.finalize())
-        table.windows_this_epoch += charge
+    engine._feed_streams(streams, k, min_quality, lifetimes, pacer.step, "sharded_encode")
+    while lifetimes.batches < steps:  # ran dry: charged as the other ranks' batches are
+        lifetimes.charge()
     pacer.finish()
-    epochs.append(table.finalize())
-    return BatchEngine._merge_epochs(epochs, k)
+    return lifetimes.result(k)

@@ -18,7 +18,7 @@ from krust_tpu_torch import api
 from krust_tpu_torch.histogram import CountHistogram, compute_histogram_array
 from krust_tpu_torch.io.format import SequenceFormat
 from krust_tpu_torch.io.input import Input
-from krust_tpu_torch.models.engines import BatchEngine, PackedCounts
+from krust_tpu_torch.models.engines import BatchEngine, PackedCounts, _Lifetimes
 from krust_tpu_torch.ops import table as table_mod
 from krust_tpu_torch.ops.histogram import BINS, count_histogram, count_histogram_plain
 from krust_tpu_torch.output import OutputFormat, output_packed
@@ -166,17 +166,27 @@ def test_a_count_past_one_lifetime_carries_none(fasta, monkeypatch):
     assert got == _histogram_bytes(one, 1)
 
 
-def test_merge_epochs_keeps_only_one_pulled_tables_histogram():
+def test_merge_epochs_keeps_only_one_pulled_tables_histogram(monkeypatch):
+    class Pulls:  # a one-device table whose finalize hands out given pulled tables
+        _device = torch.device("cpu")
+
+        def __init__(self, *tables):
+            self.finalize = iter(tables).__next__
+
     codes = np.array([3, 9], np.uint64)
     counts = np.array([2, 5], np.uint64)
     hist = count_histogram_plain(torch.tensor([2, 5], dtype=torch.int32))
-    one = BatchEngine._merge_epochs([table_mod.PulledTable(codes, counts, hist)], K)
+    one = _Lifetimes(Pulls(table_mod.PulledTable(codes, counts, hist)), False).result(K)
     assert one.histogram is hist
-    two = BatchEngine._merge_epochs([table_mod.PulledTable(codes.copy(), counts.copy(), hist),
-                                     table_mod.PulledTable(codes.copy(), counts.copy(), hist)], K)
-    assert two.histogram is None
-    np.testing.assert_array_equal(two.counts, counts * 2)
-    assert BatchEngine._merge_epochs([(codes, counts)], K).histogram is None
+    monkeypatch.setattr(table_mod, "EPOCH_WINDOW_LIMIT", 1)  # a pull a batch
+    for n in (2, 3):
+        lifetimes = _Lifetimes(Pulls(*[table_mod.PulledTable(codes.copy(), counts.copy(), hist)
+                                       for _ in range(n)]), False)
+        for _ in range(n - 1):
+            lifetimes.charge(1)
+        several = lifetimes.result(K)
+        assert several.histogram is None
+        np.testing.assert_array_equal(several.counts, counts * n)
 
 
 def test_a_pulled_table_unpacks_as_codes_and_counts():

@@ -7,6 +7,7 @@ import numpy as np
 from krust_tpu_torch.io.reader import ParsedStreams
 from krust_tpu_torch.models.engines import BatchEngine as PortBatchEngine
 from krust_tpu_torch.models.engines import NumpyEngine as PortNumpyEngine
+from krust_tpu_torch.models.engines import _Lifetimes
 from krust_tpu_torch.ops import table as port_table
 from krust_tpu_torch.utils.config import EngineConfig as PortEngineConfig
 from krust_tpu_torch.utils.config import default_device
@@ -56,10 +57,9 @@ def _port_feed(codes, k):
     """The port's engine's epoch table fed one stream, and its lifetimes."""
     streams = ParsedStreams(codes, None, 1, codes.shape[0])
     engine = PortBatchEngine(PortEngineConfig(block_windows=256, batch_rows=8))
-    table = engine._make_table(k)
-    epochs = []
-    engine._feed_streams(streams, k, None, table, epochs, lambda w: None)
-    return engine, streams, table, epochs
+    lifetimes = _Lifetimes(engine._make_table(k), False)
+    engine._feed_streams(streams, k, None, lifetimes, lambda w: None)
+    return streams, lifetimes.table, lifetimes
 
 
 class TestPortAdaptiveAndScaledLimits:
@@ -87,10 +87,9 @@ class TestPortAdaptiveAndScaledLimits:
     def test_adaptive_epoch_shrinks_on_duplication(self, monkeypatch):
         _pin_limits(monkeypatch, 4096)
         motif = np.random.default_rng(55).integers(0, 4, 40, dtype=np.uint8)
-        engine, streams, table, epochs = _port_feed(np.concatenate([motif] * 600), 9)
+        streams, table, lifetimes = _port_feed(np.concatenate([motif] * 600), 9)
         assert table._adaptive is False and table._epoch_limit < 4096
-        epochs.append(table.finalize())
-        got = engine._merge_epochs(epochs, 9)
+        got = lifetimes.result(9)
         exp = PortNumpyEngine(PortEngineConfig()).count(streams, 9)
         np.testing.assert_array_equal(got.codes, exp.codes)
         np.testing.assert_array_equal(got.counts, exp.counts)
@@ -98,6 +97,6 @@ class TestPortAdaptiveAndScaledLimits:
     def test_adaptive_epoch_keeps_large_on_low_duplication(self, monkeypatch):
         _pin_limits(monkeypatch, 2048)
         codes = np.random.default_rng(56).integers(0, 4, 12_000, dtype=np.uint8)
-        _, _, table, _ = _port_feed(codes, 15)
+        _, table, _ = _port_feed(codes, 15)
         table.finalize()
         assert table._epoch_limit == 2048

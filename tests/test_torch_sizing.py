@@ -158,19 +158,115 @@ def test_part_merge_frees_its_inputs_before_k2(monkeypatch, k):
     assert _table_dict([merged]) == expect
 
 
-def test_merge_tables_equals_concatenate_and_unique():
+def _concatenate_and_unique(tables):
+    """The sum of host tables by concatenation, ``np.unique`` and ``np.add.at``."""
+    if not tables:
+        return np.zeros(0, np.uint64), np.zeros(0, np.uint64)
+    uniq, inverse = np.unique(np.concatenate([t[0] for t in tables]), return_inverse=True)
+    sums = np.zeros(uniq.shape[0], np.uint64)
+    np.add.at(sums, inverse, np.concatenate([t[1] for t in tables]))
+    return uniq, sums
+
+
+class _Pulls:
+    """A one-device table whose ``finalize`` hands out given host tables."""
+
+    _device = CPU
+
+    def __init__(self, tables):
+        self.finalize = iter(tables).__next__
+
+
+def test_merge_tables_equals_concatenate_and_unique(monkeypatch):
     """The host sum of the lifetimes' tables: shared keys, keys only one
     side has (before, between and after the other's), empty tables."""
+    monkeypatch.setattr(table_mod, "EPOCH_WINDOW_LIMIT", 1)  # a pull a batch
     rng = np.random.default_rng(8)
     for sizes in ((0, 5), (5, 0), (1000, 300), (300, 1000), (2000, 2000), (1, 1)):
         tables = []
         for n in sizes:
             codes = np.sort(rng.choice(5000, n, replace=False)).astype(np.uint64)
             tables.append((codes, rng.integers(1, 1 << 40, n).astype(np.uint64)))
-        exp = engines._merge_partials([t[0] for t in tables], [t[1] for t in tables])
-        got = engines.BatchEngine._merge_epochs([(c.copy(), n.copy()) for c, n in tables], 21)
+        exp = _concatenate_and_unique(tables)
+        lifetimes = engines._Lifetimes(_Pulls((c.copy(), n.copy()) for c, n in tables), False)
+        lifetimes.charge(1)
+        got = lifetimes.result(21)
         np.testing.assert_array_equal(got.codes, exp[0])
         np.testing.assert_array_equal(got.counts, exp[1])
+
+
+@pytest.mark.parametrize("threshold", [0, 700, 5000, 64_000_000])
+@pytest.mark.parametrize("n_parts", [0, 1, 2, 7])
+def test_host_accumulator_equals_concatenate_and_unique(threshold, n_parts):
+    """The host engines' sum of chunk and record partials: merged whenever
+    more than ``threshold`` entries are held, then at the end."""
+    rng = np.random.default_rng(n_parts)
+    tables = []
+    for n in rng.integers(0, 900, n_parts):
+        codes = np.sort(rng.choice(3000, n, replace=False)).astype(np.uint64)
+        tables.append((codes, rng.integers(1, 1 << 40, n).astype(np.uint64)))
+    exp = _concatenate_and_unique(tables)
+    acc = engines._HostAccumulator(threshold)
+    for codes, counts in tables:
+        acc.add(codes.copy(), counts.copy())
+    got = acc.result()
+    np.testing.assert_array_equal(got[0], exp[0])
+    np.testing.assert_array_equal(got[1], exp[1])
+    assert got[0].dtype == got[1].dtype == np.uint64
+
+
+#: the pull points of the lifetime rule, written out: a group is a batch on
+#: each slot; at a group's first batch i the table is pulled before i when
+#: the windows charged since the last pull plus slots x the batch's charge
+#: reach the limit. ``fed`` batches are added, the rest only charged (a
+#: rank that ran dry)
+LIFETIME_CASES = {
+    # charges 300 x5, 100, 300 at limit 1000: 900 + 300 before batch 3,
+    # 700 + 300 before batch 6
+    "one_device": (1, 1000, None, [300, 300, 300, 300, 300, 100, 300], 7, [3, 6]),
+    "one_device_lsm": (1, 1000, None, [300, 300, 300, 300, 300, 100, 300], 7, [3, 6]),
+    # 2 slots, 100 a batch, limit 500: 400 + 200 at batches 4 and 8, the
+    # second while the rank is dry
+    "two_slots": (2, 500, 100, [0] * 12, 7, [4, 8]),
+    "two_slots_lsm": (2, 500, 100, [0] * 12, 7, [4, 8]),
+    # 3 slots, 100 a batch, limit 700: 600 + 300 at batches 6 and 12; the
+    # rank runs dry inside a group
+    "three_slots": (3, 700, 100, [0] * 14, 8, [6, 12]),
+}
+
+
+@pytest.mark.parametrize("case", list(LIFETIME_CASES))
+def test_lifetimes_pull_at_the_rules_batches(monkeypatch, case):
+    from krust_tpu_torch.ops.keys import keys_to_codes
+    from krust_tpu_torch.parallel import sharded
+    from krust_tpu_torch.parallel.mesh import make_mesh
+
+    slots, limit, charge, windows, fed, pulls = LIFETIME_CASES[case]
+    lsm = case.endswith("_lsm")
+    monkeypatch.setattr(table_mod, "EPOCH_WINDOW_LIMIT", limit)
+    if slots == 1:
+        table = (table_mod.DeviceTable if lsm else table_mod.EpochTable)(21, device=CPU)
+    else:
+        table = sharded._Slots(21, make_mesh(devices=["cpu"] * slots),
+                               sharded.ShardedTable if lsm else sharded.EpochShardedTable)
+    lifetimes = engines._Lifetimes(table, lsm, charge)
+    seen = []
+    finalize = table.finalize
+    monkeypatch.setattr(table, "finalize", lambda: seen.append(lifetimes.batches) or finalize())
+    rng = np.random.default_rng(slots)
+    raw = []
+    for i, w in enumerate(windows):
+        charged = lifetimes.charge(w)
+        assert charged == (charge or w)
+        if i < fed:
+            raw.append(torch.from_numpy(rng.integers(-(1 << 63), -(1 << 63) + 400, 50)))
+            lifetimes.add(raw[-1], charged)
+    got = lifetimes.result(21)
+    assert seen == pulls + [len(windows)]
+    assert got.histogram is None  # a sum of lifetimes
+    exp = np.unique(keys_to_codes(torch.cat(raw).numpy(), 21), return_counts=True)
+    np.testing.assert_array_equal(got.codes, exp[0])
+    np.testing.assert_array_equal(got.counts, exp[1])
 
 
 # --- a genome-shaped count across lifetimes ----------------------------------------

@@ -606,12 +606,11 @@ def test_adaptive_epoch_shrinks_on_duplication(monkeypatch):
     codes = np.concatenate([motif for _ in range(600)])
     s = ParsedStreams(codes, None, 1, codes.shape[0])
     eng = BatchEngine(EngineConfig(block_windows=256, batch_rows=8, device="cpu"))
-    table = eng._make_table(9)
-    epochs = []
-    eng._feed_streams(s, 9, None, table, epochs, lambda w: None)
+    lifetimes = engines._Lifetimes(eng._make_table(9), False)
+    eng._feed_streams(s, 9, None, lifetimes, lambda w: None)
+    table = lifetimes.table
     assert table._adaptive is False and table._epoch_limit < 4096
-    epochs.append(table.finalize())
-    got = eng._merge_epochs(epochs, 9)
+    got = lifetimes.result(9)
     exp = NumpyEngine().count(s, 9)
     np.testing.assert_array_equal(got.codes, exp.codes)
     np.testing.assert_array_equal(got.counts, exp.counts)
