@@ -18,6 +18,7 @@ from .io.reader import (
     parse_records,
     parse_to_streams,
     read_input_bytes,
+    read_streams,
     streams_from_sequences,
 )
 from .kmer import KmerLength
@@ -39,13 +40,18 @@ ProgressCallback = Callable[[Progress], None]
 DEFAULT_STDIN_CHUNK_BYTES = 256 << 20
 
 
-def _read_streams(path, k: int, fmt: SequenceFormat):
-    """Shared preamble: validate k, resolve format, read + parse."""
+def _read_streams(path, k: int, fmt: SequenceFormat, min_quality: int | None = None):
+    """Shared preamble: validate k, resolve format, read + parse. The span
+    says on how many threads the parse ran, whether it read a mapping of
+    the file, and whether it made a quality stream (only a count with
+    ``min_quality`` reads one)."""
     kk = KmerLength(k).get()
     resolved = fmt.resolve(path)
-    with span("read_sequences", path=str(path), format=str(resolved)):
-        data = read_input_bytes(path)
-        streams = parse_to_streams(data, resolved)
+    with span("read_sequences", path=str(path), format=str(resolved)) as fields:
+        streams, fields["threads"], fields["mapped"] = read_streams(
+            path, resolved, quality=min_quality is not None
+        )
+        fields["quality"] = streams.qual is not None
     return kk, streams
 
 
@@ -82,7 +88,7 @@ def _count_path(
             return count_chunked_streams(
                 chunks, kk, min_quality, cfg, progress, tracker
             )
-    kk, streams = _read_streams(path, k, fmt)
+    kk, streams = _read_streams(path, k, fmt, min_quality)
     return count_streams(streams, kk, min_quality, cfg, progress, tracker)
 
 
@@ -250,7 +256,7 @@ def count_kmers_sharded_result(
     """Packed-result variant of :func:`count_kmers_sharded`."""
     from .parallel.sharded import count_sharded
 
-    kk, streams = _read_streams(path, k, fmt)
+    kk, streams = _read_streams(path, k, fmt, min_quality)
     return count_sharded(streams, kk, min_quality, mesh, config)
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import gzip
 import os
+import stat
 import sys
 from dataclasses import dataclass
 
@@ -243,7 +244,7 @@ def read_records_with_quality(
 # --- flat stream fast path -------------------------------------------------------
 
 
-def parse_to_streams(data: bytes, fmt: SequenceFormat) -> ParsedStreams:
+def parse_to_streams(data: bytes, fmt: SequenceFormat, *, quality: bool = True) -> ParsedStreams:
     """Parse raw bytes directly into separator-delimited code/quality streams.
 
     The returned ``codes`` array is what the sliding-window codec consumes:
@@ -252,23 +253,24 @@ def parse_to_streams(data: bytes, fmt: SequenceFormat) -> ParsedStreams:
     reproduces the reference's per-record window scan exactly (a window is
     counted iff it contains no invalid base; reference: src/run.rs:526-563)
     while letting the whole input live in one dense tensor.
+
+    With ``quality`` false a FASTQ input still has its quality lengths
+    checked, but ``qual`` is None: for a count that reads no quality.
     """
+    return _parse(data, fmt, quality)[0]
+
+
+def _parse(data, fmt: SequenceFormat, quality: bool) -> tuple[ParsedStreams, int]:
+    """:func:`parse_to_streams` -> (streams, threads the parse ran on)."""
     fmt = fmt.resolve(None) if fmt is SequenceFormat.AUTO else fmt
 
-    # native C++ single-pass parser (numpy path below is the exact fallback)
+    # the native range-parallel parse (the numpy path below is the exact fallback)
     from . import native
 
-    if native.available():
-        if fmt.is_fastq:
-            res = native.parse_fastq_native(data)
-            if res is not None:
-                codes, qual, n_rec, n_bases = res
-                return ParsedStreams(codes, qual, n_rec, n_bases)
-        else:
-            res = native.parse_fasta_native(data)
-            if res is not None:
-                codes, n_rec, n_bases = res
-                return ParsedStreams(codes, None, n_rec, n_bases)
+    res = native.ingest_native(data, fmt.is_fastq, quality=quality)
+    if res is not None:
+        codes, qual, n_rec, n_bases, threads = res
+        return ParsedStreams(codes, qual, n_rec, n_bases), threads
 
     arr = np.frombuffer(data, dtype=np.uint8)
     if fmt.is_fastq:
@@ -276,19 +278,52 @@ def parse_to_streams(data: bytes, fmt: SequenceFormat) -> ParsedStreams:
         n_rec = rec_lens.shape[0]
         n_bases = int(rec_lens.sum())
         if n_rec == 0:
-            return ParsedStreams(
-                np.zeros(0, dtype=np.uint8), np.zeros(0, dtype=np.uint8), 0, 0
-            )
+            qual = np.zeros(0, dtype=np.uint8) if quality else None
+            return ParsedStreams(np.zeros(0, dtype=np.uint8), qual, 0, 0), 1
         codes = _with_separators(BASE_LUT[seq_flat], rec_lens, INVALID_CODE)
-        qual = _with_separators(qual_flat, rec_lens, 0xFF)
-        return ParsedStreams(codes, qual, n_rec, n_bases)
+        qual = _with_separators(qual_flat, rec_lens, 0xFF) if quality else None
+        return ParsedStreams(codes, qual, n_rec, n_bases), 1
     seq_flat, rec_lens = _parse_fasta(arr)
     n_rec = rec_lens.shape[0]
     n_bases = int(rec_lens.sum())
     if n_rec == 0:
-        return ParsedStreams(np.zeros(0, dtype=np.uint8), None, 0, 0)
+        return ParsedStreams(np.zeros(0, dtype=np.uint8), None, 0, 0), 1
     codes = _with_separators(BASE_LUT[seq_flat], rec_lens, INVALID_CODE)
-    return ParsedStreams(codes, None, n_rec, n_bases)
+    return ParsedStreams(codes, None, n_rec, n_bases), 1
+
+
+def read_streams(
+    path: str | os.PathLike | None, fmt: SequenceFormat, *, quality: bool = True
+) -> tuple[ParsedStreams, int, bool]:
+    """Read and parse a whole input -> (streams, parse threads, mapped).
+
+    A regular, non-empty, uncompressed file is parsed straight from a
+    read-only mapping (``mapped`` true) that is gone when this returns: no
+    array of the result views it, and no copy of the file is made. gzip,
+    stdin, FIFOs and empty files are read into bytes first. ``quality`` as
+    for :func:`parse_to_streams`.
+    """
+    fmt = fmt.resolve(path)
+    if path is None or is_gzip_path(path):
+        return (*_parse(read_input_bytes(path), fmt, quality), False)
+    from . import native
+
+    try:
+        with open(path, "rb") as f:
+            st = os.fstat(f.fileno())
+            if stat.S_ISREG(st.st_mode) and st.st_size:
+                res = native.ingest_file_native(
+                    f.fileno(), st.st_size, fmt.is_fastq, quality=quality
+                )
+                if res is not None:
+                    codes, qual, n_rec, n_bases, threads = res
+                    return ParsedStreams(codes, qual, n_rec, n_bases), threads, True
+            data = f.read()
+    except FileNotFoundError:
+        raise
+    except OSError as e:
+        raise ReadError(str(e), str(path)) from e
+    return (*_parse(data, fmt, quality), False)
 
 
 def stream_input_chunks(
