@@ -321,7 +321,7 @@ def _pull_table(t_keys, t_cnt, n: int, k: int) -> PulledTable:
     counts). Keys and int32 counts leave the card in chunks through the
     pinned ring; each chunk is decoded and widened straight into the
     result, the only host arrays the pull allocates."""
-    with span("pull_table", entries=n) as fields:
+    with span("pull_table", entries=n, key_bytes=t_keys.element_size()) as fields:
         histogram = count_histogram(t_cnt[:n])
         codes = np.empty(n, np.uint64)
         counts = np.empty(n, np.uint64)
@@ -464,6 +464,11 @@ class EpochTable:
     #: windows), so an epoch never holds less than a batch's keys
     ADAPT_MIN = 1 << 25
 
+    #: epoch flushes and part merges of every epoch table in the process,
+    #: counted as ``_copy_decode.chunks`` counts the pull's chunks
+    flushes = 0
+    part_merges = 0
+
     def __init__(self, k: int = 32, max_parts: int = 8, *,
                  device: torch.device | str | None = None):
         self._k = k
@@ -491,28 +496,33 @@ class EpochTable:
             self._flush_raw()
 
     def _resolve_epoch(self) -> None:
-        """Sync the in-flight epoch's n and slice it into a compacted part."""
+        """Sync the in-flight epoch's n and slice it into a compacted part
+        (span ``epoch_resolve``); merge the parts once there are more than
+        ``max_parts``."""
         if self._pending_epoch is None:
             return
         o_keys, o_cnt, n_dev = self._pending_epoch
         epoch_raw = self._pending_epoch_raw
         self._pending_epoch = None
-        n = int(n_dev.item())
-        trace_event("epoch_flushed", unique_kmers=n)
-        if self._adaptive and epoch_raw:
-            # retune from this epoch's measured duplication: high-dup data
-            # prefers slices of ~ADAPT_DUP_TARGET * distinct; low-dup data
-            # keeps the device-budget maximum
-            self._adaptive = False  # one measurement is enough
-            target = max(n, 1) * self.ADAPT_DUP_TARGET
-            new_limit = min(self._epoch_limit, max(target, self.ADAPT_MIN))
-            if new_limit < self._epoch_limit:
-                trace_event(
-                    "epoch_limit_adapted", new=new_limit, distinct=n, raw=epoch_raw
-                )
-                self._epoch_limit = new_limit
-        self._compacted.append(_part(o_keys, o_cnt, n))
-        del o_keys, o_cnt
+        with span("epoch_resolve", raw=epoch_raw, retuned=False) as fields:
+            n = int(n_dev.item())
+            fields["unique_kmers"] = n
+            trace_event("epoch_flushed", unique_kmers=n)
+            if self._adaptive and epoch_raw:
+                # retune from this epoch's measured duplication: high-dup data
+                # prefers slices of ~ADAPT_DUP_TARGET * distinct; low-dup data
+                # keeps the device-budget maximum
+                self._adaptive = False  # one measurement is enough
+                target = max(n, 1) * self.ADAPT_DUP_TARGET
+                new_limit = min(self._epoch_limit, max(target, self.ADAPT_MIN))
+                if new_limit < self._epoch_limit:
+                    trace_event(
+                        "epoch_limit_adapted", new=new_limit, distinct=n, raw=epoch_raw
+                    )
+                    self._epoch_limit = new_limit
+                    fields["retuned"] = True
+            self._compacted.append(_part(o_keys, o_cnt, n))
+            del o_keys, o_cnt
         if len(self._compacted) > self._max_parts:
             self._merge_compacted()
 
@@ -520,7 +530,9 @@ class EpochTable:
         self._resolve_epoch()  # the sync overlaps the batches queued since
         if not self._raw:
             return
-        with span("epoch_flush", pending=self._raw_pending):
+        with span("epoch_flush", pending=self._raw_pending,
+                  key_bytes=self._raw[0].element_size()):
+            EpochTable.flushes += 1
             self._pending_epoch_raw = self._raw_pending
             self._raw_pending = 0
             self._pending_epoch = _epoch_concat_sort_rle(self._raw)
@@ -533,7 +545,9 @@ class EpochTable:
         while len(runs) > 1:
             nxt = []
             while len(runs) > 1:
-                with span("part_merge", entries=runs[0][0].numel() + runs[1][0].numel()):
+                with span("part_merge", entries=runs[0][0].numel() + runs[1][0].numel(),
+                          key_bytes=runs[0][0].element_size()):
+                    EpochTable.part_merges += 1
                     o_keys, o_cnt, n_dev = _merge_compact(runs.pop(0), runs.pop(0))
                     nxt.append(_part(o_keys, o_cnt, int(n_dev.item())))
                 del o_keys, o_cnt

@@ -95,7 +95,9 @@ def test_the_chunked_pull_equals_the_one_shot_decode(small_chunks, k, size):
     chunks = -(-n // CHUNK)
     assert table_mod._copy_decode.chunks - before == chunks
     threads = max(1, min(len(os.sched_getaffinity(0)), -(-min(n, CHUNK) // PART)))
-    assert spans.fields == [{"entries": n, "bytes": n * (4 if k <= 16 else 8) + 4 * n,
+    key_bytes = 4 if k <= 16 else 8
+    assert spans.fields == [{"entries": n, "key_bytes": key_bytes,
+                             "bytes": n * key_bytes + 4 * n,
                              "chunks": chunks, "threads": threads,
                              "elapsed_s": spans.fields[0]["elapsed_s"]}]
 
