@@ -62,9 +62,12 @@ Phases, printing JSON lines:
    over a 16 Mbase genome with about 5% of bases N or below Q20 (above the
    1/32 line), counted at -Q 20, k = 21, once, timed, with the counters
    set to 0 just before the count (K4 and K2 must launch, K1 must not),
-   equal to the native core; the host time of ``pack_buffer_2bit``; the
-   same parsed stream timed on both device routes (dense, and flat with
-   the invalid positions scanned without the 1/32 limit); a dirty ~8 Mbase
+   equal to the native core; the host time of ``pack_buffer_2bit``'s own
+   whole-stream pack (``dense_pack_s``: the native pack on the host's
+   cores, numpy without the library) and of the route scan without its
+   1/32 limit (``route_scan_unlimited_s``: the count, then the flat pack
+   with the positions); the same parsed stream timed on both device routes
+   (dense, and flat with the 1/32 limit lifted); a dirty ~8 Mbase
    FASTQ at k in {1, 5, 16, 17, 24, 32} and one block_windows = 8 count;
 8. the LSM table path (``EngineConfig(use_epoch_sort=False)``: the
    ``DeviceTable``, compactions by ``merge_runs``) on phase 3's workload,
@@ -1175,24 +1178,24 @@ def _phase7(rng, gpu, tmp) -> dict:
     scan = packer.flat_scan(streams.codes, streams.qual, thr, streams.codes.shape[0])
     scan_s = time.perf_counter() - t0
     engine = BatchEngine(EngineConfig())
-    flat_batches = packer.flat_batches
+    scan_stream = packer.scan_stream
 
-    def flat_route(codes, qual, kk, t, w, rows):
-        """The flat layout without its 1/32 limit (a measurement only)."""
-        scanned = packer.flat_scan(codes, qual, t, codes.shape[0])
-        return flat_batches(codes, qual, kk, t, w, rows, prescanned=scanned)
+    def flat_route(codes, qual, t, max_inv, *a, **kw):
+        """The route scan without its 1/32 limit (a measurement only)."""
+        return scan_stream(codes, qual, t, codes.shape[0] if max_inv >= 0 else max_inv, *a,
+                           **kw)
 
     route_s = {"dense": [], "flat": []}
     for name in ("dense", "flat", "flat", "dense"):
         _zero_launches()
         if name == "flat":
-            packer.flat_batches = flat_route
+            packer.scan_stream = flat_route
         try:
             t0 = time.perf_counter()
             got = engine.count(streams, k, q)
             route_s[name].append(time.perf_counter() - t0)
         finally:
-            packer.flat_batches = flat_batches
+            packer.scan_stream = scan_stream
         launches = _launches()
         codec = "encode_dense" if name == "dense" else "encode_windows"
         other = "encode_windows" if name == "dense" else "encode_dense"
@@ -1202,8 +1205,8 @@ def _phase7(rng, gpu, tmp) -> dict:
     _emit({"phase": 7, "k": k, "min_quality": q, "bases": MAIN_BASES, "read_len": READ_LEN,
            "genome": GENOME, "invalid_share": invalid_share, "distinct": exp.distinct,
            "total": exp.total, "equal_to_native": True, "data_gen_s": gen_s, "runs": runs,
-           "native_core_s": native_s, "pack_buffer_2bit_s": pack_s,
-           "pack_buffer_2bit_batches": n_batches, "flat_scan_unlimited_s": scan_s,
+           "native_core_s": native_s, "dense_pack_s": pack_s,
+           "pack_buffer_2bit_batches": n_batches, "route_scan_unlimited_s": scan_s,
            "invalid_positions": int(scan[1].shape[0]),
            "route_count_s": route_s, "gpu": gpu})
     del streams, scan

@@ -3,7 +3,8 @@
 Builds the package's own ``io/native/krust_native.cpp`` (a byte-for-byte
 copy of the JAX package's core, held equal by a test) and, as a library of
 its own, ``io/native/ingest.cpp`` (the range-parallel parse of whole
-inputs, optionally over a mapping of the file) with g++ on first use, each
+inputs, optionally over a mapping of the file, and the threaded scan and
+2-bit pack of the parsed stream) with g++ on first use, each
 cached as a .so under ``krust_tpu_torch/_build/`` keyed by its source's
 content hash. Disable both with ``KRUST_NO_NATIVE=1``.
 """
@@ -384,6 +385,11 @@ def _get_ingest() -> ctypes.CDLL | None:
         lib.krust_ingest.argtypes = [u8p, ctypes.c_int64, *tail]
         lib.krust_ingest_fd.restype = ctypes.c_int32
         lib.krust_ingest_fd.argtypes = [ctypes.c_int32, ctypes.c_int64, *tail]
+        lib.krust_scan_pack.restype = ctypes.c_int64
+        lib.krust_scan_pack.argtypes = [
+            u8p, ctypes.c_int64, u8p, ctypes.c_int32, ctypes.c_int32, u8p, ctypes.c_int64,
+            i64p, ctypes.c_int64, u8p, ctypes.c_int64,
+        ]
         _INGEST = lib
     return _INGEST
 
@@ -440,3 +446,45 @@ def ingest_file_native(fd: int, size: int, fastq: bool, *, quality: bool = True,
     threads = ingest_threads(size) if threads is None else threads
     res = _ingest(partial(lib.krust_ingest_fd, fd), size, fastq, quality, threads)
     return _ingest_result(*res, threads)
+
+
+def scan_pack_native(codes: np.ndarray, qual: np.ndarray | None,
+                     quality_threshold: int | None, max_inv: int, packed_len: int = 0,
+                     bad_len: int = 0):
+    """Scan and 2-bit pack a code stream on :func:`ingest_threads` threads
+    -> (packed2, invpos, badbits, n_invalid, threads), or None without the
+    native library. ``n_invalid`` counts the invalid bases (past 3, or with
+    a threshold a quality below it) exactly.
+
+    ``packed2`` holds every base's 2-bit byte, zero-padded to
+    ``packed_len`` bytes (at least ceil(n / 4)). With ``max_inv >= 0`` the
+    call is the route scan: a counting pass, then the pack, with
+    ``invpos`` the invalid positions (int64, ascending) when ``n_invalid <=
+    max_inv``; past that, ``badbits`` the invalid mask (bit 7 the first
+    base, bits past the stream set, 0xFF up to ``bad_len`` bytes) where
+    ``bad_len`` asks for one, else no pack (``packed2`` None). With
+    ``max_inv < 0`` it is the dense pack: one pass writes ``packed2`` and
+    ``badbits``."""
+    lib = _get_ingest()
+    if lib is None:
+        return None
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    n = codes.shape[0]
+    threads = ingest_threads(n)
+    qp, thr = None, -1
+    if qual is not None and quality_threshold is not None:
+        qual = np.ascontiguousarray(qual, dtype=np.uint8)
+        qp, thr = _as_u8p(qual), quality_threshold
+    packed2 = np.empty(max(packed_len, -(-n // 4)), np.uint8)
+    dense_pack = bad_len or max_inv < 0
+    bad_len = max(bad_len, -(-n // 8)) if dense_pack else 0
+    # neither buffer is touched on the route that does not take it
+    badbits = np.empty(bad_len, np.uint8) if dense_pack else None
+    invpos = np.empty(max(max_inv, 1), np.int64) if max_inv >= 0 else None
+    n_inv = lib.krust_scan_pack(
+        _as_u8p(codes), n, qp, thr, threads, _as_u8p(packed2), packed2.shape[0],
+        None if invpos is None else invpos.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        max_inv, None if badbits is None else _as_u8p(badbits), bad_len)
+    if invpos is not None and n_inv <= max_inv:
+        return packed2, invpos[:n_inv], None, n_inv, threads
+    return (None if badbits is None else packed2), None, badbits, n_inv, threads

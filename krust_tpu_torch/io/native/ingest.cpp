@@ -14,7 +14,16 @@
 // parse meets first; FASTQ's line-count check comes after every line passed.
 // A FASTQ quality stream is written only when out_qual is non-null; its
 // lengths are checked either way.
+//
+// Beside the parse, the scan of the parsed code stream (krust_scan_pack), in
+// two threaded passes over the same ranges: the first counts each range's
+// invalid bases, which decides the route; the second writes every base's 2-bit
+// byte and either each range's invalid positions at its offset (flat: their
+// total fits the budget) or the invalid mask (dense; a dense scan that asks for
+// no mask ends after the count). No range keeps a buffer of its own and no
+// thread waits on another.
 
+#include <algorithm>
 #include <cerrno>
 #include <cstdint>
 #include <cstring>
@@ -276,9 +285,173 @@ int32_t ingest(const uint8_t* d, int64_t len, int32_t fastq, int32_t threads,
                  : ingest_fasta(d, len, n, codes, out_len, n_records, n_bases);
 }
 
+// ---- the code stream's scan and 2-bit pack -------------------------------------
+
+static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__, "the 8-base loads assume it");
+
+// Invalid mask of the 8 codes in x (byte j = base j): bit 7 - j set when
+// code j is past 3.
+inline uint8_t code_mask(uint64_t x) {
+    const uint64_t hi = x & 0xFCFCFCFCFCFCFCFCull;  // a byte's bits past the 2-bit code
+    const uint64_t nz = (((hi & 0x7F7F7F7F7F7F7F7Full) + 0x7F7F7F7F7F7F7F7Full) | hi) &
+                        0x8080808080808080ull;  // bit 7 of each byte with any of them
+    return static_cast<uint8_t>(((nz >> 7) * 0x8040201008040201ull) >> 56);
+}
+
+// The 2-bit byte of the 4 codes in the low 32 bits of y (each masked to 2
+// bits): the first base in the high 2 bits.
+inline uint8_t pack4(uint64_t y) {
+    return static_cast<uint8_t>((((y & 0xFFFFFFFFull) * 0x40100401ull) >> 24) & 0xFF);
+}
+
+template <bool kQual>
+inline uint8_t group_mask(const uint8_t* codes, const uint8_t* qual, int32_t thr, int64_t g,
+                          uint64_t* x) {
+    std::memcpy(x, codes + 8 * g, 8);
+    uint8_t m = code_mask(*x);
+    if (kQual) {
+        const uint8_t* q = qual + 8 * g;
+        for (int j = 0; j < 8; ++j) m |= static_cast<uint8_t>((q[j] < thr) << (7 - j));
+    }
+    return m;
+}
+
+// Invalid bases of groups [g0, g1) of 8 bases.
+template <bool kQual>
+int64_t count_groups(const uint8_t* codes, const uint8_t* qual, int32_t thr, int64_t g0,
+                     int64_t g1) {
+    int64_t count = 0;
+    uint64_t x;
+    for (int64_t g = g0; g < g1; ++g)
+        count += __builtin_popcount(group_mask<kQual>(codes, qual, thr, g, &x));
+    return count;
+}
+
+// Groups [g0, g1) of 8 bases: the 2-bit bytes, and the invalid positions from
+// pos on (kPos) or the invalid mask; returns the invalid bases.
+template <bool kPos, bool kQual>
+int64_t pack_groups(const uint8_t* codes, const uint8_t* qual, int32_t thr, int64_t g0,
+                    int64_t g1, uint8_t* packed2, uint8_t* badbits, int64_t* pos) {
+    int64_t count = 0;
+    uint64_t x;
+    for (int64_t g = g0; g < g1; ++g) {
+        const uint8_t m = group_mask<kQual>(codes, qual, thr, g, &x);
+        const uint64_t y = x & 0x0303030303030303ull;
+        packed2[2 * g] = pack4(y);
+        packed2[2 * g + 1] = pack4(y >> 32);
+        if (!kPos) badbits[g] = m;
+        if (m) {
+            count += __builtin_popcount(m);
+            if (kPos)
+                for (int j = 0; j < 8; ++j)
+                    if (m & (0x80 >> j)) *pos++ = 8 * g + j;
+        }
+    }
+    return count;
+}
+
+// Groups [g0, g1): without packed2 the count alone, else the pack with the
+// positions (pos non-null) or the mask.
+template <bool kQual>
+int64_t pack_range(const uint8_t* codes, const uint8_t* qual, int32_t thr, int64_t g0,
+                   int64_t g1, uint8_t* packed2, uint8_t* badbits, int64_t* pos) {
+    if (!packed2) return count_groups<kQual>(codes, qual, thr, g0, g1);
+    if (pos) return pack_groups<true, kQual>(codes, qual, thr, g0, g1, packed2, badbits, pos);
+    return pack_groups<false, kQual>(codes, qual, thr, g0, g1, packed2, badbits, pos);
+}
+
+// The last n % 8 bases (from group `groups` on): 2-bit bytes zero-padded,
+// mask bits past n set, positions from pos on; returns the invalid bases.
+int64_t pack_tail(const uint8_t* codes, int64_t n, const uint8_t* qual, int32_t thr,
+                  int64_t groups, uint8_t* packed2, uint8_t* badbits, int64_t* pos) {
+    const int64_t t0 = groups * 8;
+    if (n == t0) return 0;
+    if (packed2)
+        for (int64_t b = 2 * groups; b < (n + 3) / 4; ++b) packed2[b] = 0;
+    int64_t count = 0;
+    uint8_t m = 0;
+    for (int64_t i = t0; i < n; ++i) {
+        const bool bad = codes[i] > 3 || (qual && qual[i] < thr);
+        if (packed2) packed2[i / 4] |= static_cast<uint8_t>((codes[i] & 3) << (6 - 2 * (i % 4)));
+        m |= static_cast<uint8_t>(bad << (7 - (i - t0)));
+        if (bad) {
+            ++count;
+            if (pos) *pos++ = i;
+        }
+    }
+    if (badbits) badbits[groups] = m | static_cast<uint8_t>(0xFF >> (n - t0));
+    return count;
+}
+
+int64_t scan_pack(const uint8_t* codes, int64_t n, const uint8_t* qual, int32_t thr,
+                  int32_t threads, uint8_t* packed2, int64_t packed_len, int64_t* invpos,
+                  int64_t max_inv, uint8_t* badbits, int64_t bad_len) {
+    const int64_t groups = n / 8;
+    const int64_t nt = std::max(1, std::min(threads, 64));
+    const int64_t per = (groups + nt - 1) / nt;
+    std::vector<int64_t> counts(nt + 1, 0);  // invalid bases a range; the last: the tail
+
+    // One pass over every range and the tail: what the non-null outputs ask
+    // for, range t's positions from invpos + at[t].
+    auto pass = [&](uint8_t* p2, uint8_t* bb, const int64_t* at) {
+        run_ranges(static_cast<size_t>(nt), [&](size_t t) {
+            const int64_t g0 = std::min(static_cast<int64_t>(t) * per, groups);
+            const int64_t g1 = std::min(g0 + per, groups);
+            int64_t* pos = at ? invpos + at[t] : nullptr;
+            counts[t] = qual ? pack_range<true>(codes, qual, thr, g0, g1, p2, bb, pos)
+                             : pack_range<false>(codes, qual, thr, g0, g1, p2, bb, pos);
+        });
+        counts[nt] = pack_tail(codes, n, qual, thr, groups, p2, bb,
+                               at ? invpos + at[nt] : nullptr);
+    };
+
+    auto total = [&] {
+        int64_t count = 0;
+        for (const int64_t c : counts) count += c;
+        return count;
+    };
+
+    std::vector<int64_t> at;  // each range's offset into invpos, when the route is flat
+    if (max_inv >= 0) {
+        pass(nullptr, nullptr, nullptr);
+        at.assign(nt + 2, 0);
+        for (int64_t t = 0; t <= nt; ++t) at[t + 1] = at[t] + counts[t];
+        if (at[nt + 1] > max_inv) at.clear();
+    }
+    if (at.empty() && !badbits) return total();  // dense, and no mask asked for
+    uint8_t* bb = at.empty() ? badbits : nullptr;
+    pass(packed2, bb, at.empty() ? nullptr : at.data());
+    if (packed_len > (n + 3) / 4)
+        std::memset(packed2 + (n + 3) / 4, 0, static_cast<size_t>(packed_len - (n + 3) / 4));
+    if (bb && bad_len > (n + 7) / 8)
+        std::memset(bb + (n + 7) / 8, 0xFF, static_cast<size_t>(bad_len - (n + 7) / 8));
+    return total();
+}
+
 }  // namespace
 
 extern "C" {
+
+// Scan the code stream codes[0, n) (0..3 a base, past 3 invalid; a base is
+// also invalid where qual is non-null and qual[i] < thr) on up to `threads`
+// threads, in 8-base groups split evenly between them. Returns the exact
+// count of invalid bases. With max_inv >= 0 a counting pass comes first, and
+// when the count is at most max_inv (the flat route) the pass that packs
+// writes the positions; otherwise it writes the mask, or, with badbits null,
+// it does not run and no output is written:
+//   packed2: ceil(n/4) 2-bit bytes (first base in the high bits, an invalid
+//            base as its code & 3, the last byte zero-padded), then zeros up
+//            to packed_len;
+//   invpos:  the invalid positions, ascending (capacity max_inv);
+//   badbits: ceil(n/8) mask bytes (bit 7 the first base; set: invalid, and
+//            past n), then 0xFF up to bad_len; required with max_inv < 0.
+int64_t krust_scan_pack(const uint8_t* codes, int64_t n, const uint8_t* qual, int32_t thr,
+                        int32_t threads, uint8_t* packed2, int64_t packed_len,
+                        int64_t* invpos, int64_t max_inv, uint8_t* badbits,
+                        int64_t bad_len) {
+    return scan_pack(codes, n, qual, thr, threads, packed2, packed_len, invpos, max_inv,
+                     badbits, bad_len);
+}
 
 // Parse len bytes at data (fastq: FASTQ, else FASTA) on up to `threads`
 // threads. codes (and qual, when non-null) hold at least len bytes. Returns

@@ -12,6 +12,12 @@ stream lands in exactly one row). Two layouts cross to the device:
   plus a 1-bit-per-base invalid mask, for dirtier streams and for block
   geometries the flat layout cannot hold.
 
+:func:`route_batches` picks the route: the native scan of the stream on
+the host's cores (:func:`scan_stream`) counts its invalid bases and writes
+the chosen layout's whole-stream arrays: the flat route's 2-bit bytes and
+invalid positions, or the dense route's 2-bit bytes and invalid mask, from
+which :func:`pack_buffer_2bit` only cuts rows.
+
 The codec kernels key every window and give a window holding an invalid
 base, or one past the stream's end, the sentinel key — the device analog
 of the reference's per-record window scan restarting after an invalid base
@@ -20,6 +26,8 @@ of the reference's per-record window scan restarting after an invalid base
 
 from __future__ import annotations
 
+import threading
+from collections.abc import Iterator
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,6 +40,18 @@ DEFAULT_BLOCK_WINDOWS = 4096
 
 #: Row-count multiple for padding.
 ROW_MULTIPLE = 8
+
+#: whole-stream dense packs in the process (a stream's 2-bit bytes and
+#: invalid mask for :func:`pack_buffer_2bit`'s rows, made by the route scan
+#: or by the packer), counted as ``EpochTable.flushes`` counts flushes
+dense_packs = 0
+_DENSE_PACKS_LOCK = threading.Lock()
+
+
+def _count_dense_pack() -> None:
+    global dense_packs
+    with _DENSE_PACKS_LOCK:  # the scan's thread and the feed's both pack
+        dense_packs += 1
 
 
 @dataclass
@@ -78,6 +98,34 @@ def pack_stream_2bit(
     return packed2, badbits
 
 
+def _dense_lengths(n: int, k: int, block_windows: int) -> tuple[int, int]:
+    """Bytes of the whole-stream packed2 and badbits that the last of
+    :func:`pack_buffer_2bit`'s rows reaches (its halo included)."""
+    w = block_windows
+    width = w + k - 1
+    t = max(n - k + 1, 0)
+    last = max(-(-t // w), 1) - 1
+    return last * (w // 4) + -(-width // 4), last * (w // 8) + -(-width // 8)
+
+
+def _pack_dense(codes, qual, quality_threshold, need4: int, need8: int):
+    """The whole stream's (packed2, badbits), padded to ``need4`` and
+    ``need8`` bytes: one native pass on the host's cores, numpy without
+    the native library."""
+    from . import native
+
+    _count_dense_pack()
+    packed = native.scan_pack_native(codes, qual, quality_threshold, -1, need4, need8)
+    if packed is not None:
+        return packed[0], packed[2]
+    packed2, badbits = pack_stream_2bit(codes, qual, quality_threshold)
+    if packed2.shape[0] < need4:
+        packed2 = np.concatenate([packed2, np.zeros(need4 - packed2.shape[0], np.uint8)])
+    if badbits.shape[0] < need8:
+        badbits = np.concatenate([badbits, np.full(need8 - badbits.shape[0], 0xFF, np.uint8)])
+    return packed2, badbits
+
+
 def pack_buffer_2bit(
     codes: np.ndarray,
     qual: np.ndarray | None,
@@ -86,11 +134,16 @@ def pack_buffer_2bit(
     block_windows: int = DEFAULT_BLOCK_WINDOWS,
     batch_rows: int | None = None,
     row_multiple: int = ROW_MULTIPLE,
+    prepacked: tuple[np.ndarray, np.ndarray] | None = None,
 ):
     """Yield :class:`PackedBatch2` chunks covering the whole stream.
 
     ``block_windows`` must be a multiple of 8 so every row starts on both a
     4-base (packed2) and 8-base (badbits) boundary; other geometries raise.
+    ``prepacked`` takes the whole stream's ``(packed2, badbits)`` from a
+    dense :func:`scan_stream` at the same ``k`` and ``block_windows``
+    (``StreamScan.prepacked``): the batches are then only cut from them.
+    Without it the stream is packed here, on the first ``next()``.
     """
     w = block_windows
     if w % 8:
@@ -98,22 +151,16 @@ def pack_buffer_2bit(
     width = w + k - 1
     t = max(codes.shape[0] - k + 1, 0)
     n_blocks = -(-t // w) if t > 0 else 0
+    need4, need8 = _dense_lengths(codes.shape[0], k, w)
 
-    packed2, badbits = pack_stream_2bit(codes, qual, quality_threshold)
+    if prepacked is None:
+        packed2, badbits = _pack_dense(codes, qual, quality_threshold, need4, need8)
+    else:
+        packed2, badbits = prepacked
+        if packed2.shape[0] < need4 or badbits.shape[0] < need8:
+            raise ValueError("prepacked arrays are shorter than the rows they cut")
     p4 = -(-width // 4)
     p8 = -(-width // 8)
-
-    # pad packed streams so the last row's slices stay in bounds
-    need4 = (max(n_blocks, 1) - 1) * (w // 4) + p4
-    if packed2.shape[0] < need4:
-        packed2 = np.concatenate(
-            [packed2, np.zeros(need4 - packed2.shape[0], np.uint8)]
-        )
-    need8 = (max(n_blocks, 1) - 1) * (w // 8) + p8
-    if badbits.shape[0] < need8:
-        badbits = np.concatenate(
-            [badbits, np.full(need8 - badbits.shape[0], 0xFF, np.uint8)]
-        )
 
     step_rows = batch_rows if batch_rows is not None else max(n_blocks, 1)
     for row0 in range(0, max(n_blocks, 1), step_rows):
@@ -232,6 +279,97 @@ def _flat_segments(n: int, k: int, w: int, batch_rows: int, row_multiple: int):
         yield row0, rows_padded, seg_bases, base0, max(covered, 0)
 
 
+@dataclass
+class StreamScan:
+    """The route scan of a whole stream (:func:`scan_stream`)."""
+
+    route: str  # "flat": at most max_inv invalid bases; "dense"
+    n_invalid: int  # invalid bases, exact
+    threads: int  # the native scan's threads; 0: the numpy scan
+    packed2: np.ndarray | None  # flat: ceil(n/4) 2-bit bytes (None: numpy); dense: padded
+    invpos: np.ndarray | None  # flat: the invalid positions, int64, ascending
+    badbits: np.ndarray | None  # dense: the invalid mask, padded
+
+    @property
+    def prepacked(self) -> tuple[np.ndarray, np.ndarray] | None:
+        """:func:`pack_buffer_2bit`'s ``prepacked``: a dense scan's arrays."""
+        return None if self.badbits is None else (self.packed2, self.badbits)
+
+
+def scan_stream(
+    codes: np.ndarray,
+    qual: np.ndarray | None,
+    quality_threshold: int | None,
+    max_inv: int,
+    k: int | None = None,
+    block_windows: int = DEFAULT_BLOCK_WINDOWS,
+) -> StreamScan:
+    """Count the stream's invalid bases (non-ACGT, or below the quality
+    threshold) on the host's cores; the route is flat when they are at most
+    ``max_inv`` (``max_inv < 0``: always dense).
+
+    A native counting pass decides the route; the pass that follows writes
+    every base's 2-bit byte and the route's other array. Flat: ``packed2``
+    and ``invpos``, byte-equal to the core's ``krust_scan_stream``. Dense,
+    given ``k``: ``packed2`` and the invalid mask ``badbits``, padded to the
+    rows :func:`pack_buffer_2bit` cuts at ``k`` and ``block_windows``
+    (``max_inv < 0``: no counting pass). Without the native library a
+    numpy scan collects the positions and leaves every pack to the
+    consumer.
+    """
+    from . import native
+
+    n = codes.shape[0]
+    need4, need8 = _dense_lengths(n, k, block_windows) if k is not None else (0, 0)
+    scanned = native.scan_pack_native(codes, qual, quality_threshold, max_inv, need4, need8)
+    if scanned is None:
+        inv = invalid_positions(codes, qual, quality_threshold)
+        if inv.shape[0] <= max_inv:
+            return StreamScan("flat", inv.shape[0], 0, None, inv, None)
+        return StreamScan("dense", inv.shape[0], 0, None, None, None)
+    packed2, inv, badbits, n_inv, threads = scanned
+    if inv is not None:
+        return StreamScan("flat", n_inv, threads, packed2[: -(-n // 4)], inv, None)
+    if badbits is None:
+        return StreamScan("dense", n_inv, threads, None, None, None)
+    _count_dense_pack()
+    return StreamScan("dense", n_inv, threads, packed2, None, badbits)
+
+
+def _flat_budget(n: int) -> int:
+    """The most invalid bases a stream of ``n`` bases takes the flat route
+    with: past 1/32 of it the positions outweigh the dense bitmask."""
+    return n // 32
+
+
+def route_batches(
+    codes: np.ndarray,
+    qual: np.ndarray | None,
+    k: int,
+    quality_threshold: int | None,
+    block_windows: int = DEFAULT_BLOCK_WINDOWS,
+    batch_rows: int = 8192,
+) -> tuple[StreamScan, Iterator[FlatBatch] | Iterator[PackedBatch2]]:
+    """The route scan and the batches of the route it picks: ``(scan,
+    batches)``, ``batches`` :func:`flat_batches`' when ``scan.route`` is
+    "flat", else :func:`pack_buffer_2bit`'s.
+
+    The route is flat when the geometry is eligible (:func:`_flat_eligible`)
+    and the invalid bases are at most :func:`_flat_budget`'s; the scan then
+    leaves the flat batches only to slice. Dense, it packs the whole stream
+    for the rows, which the batches only cut.
+    """
+    w = block_windows
+    eligible = _flat_eligible(k, w, batch_rows)
+    max_inv = _flat_budget(codes.shape[0]) if eligible else -1
+    scan = scan_stream(codes, qual, quality_threshold, max_inv, k, w)
+    if scan.route == "flat":
+        return scan, flat_batches(codes, qual, k, quality_threshold, w, batch_rows,
+                                  prescanned=(scan.packed2, scan.invpos))
+    return scan, pack_buffer_2bit(codes, qual, k, quality_threshold, w, batch_rows,
+                                  prepacked=scan.prepacked)
+
+
 def flat_scan(
     codes: np.ndarray,
     qual: np.ndarray | None,
@@ -240,23 +378,12 @@ def flat_scan(
 ):
     """The flat path's stream scan: ``(packed2 | None, invpos)``, or None.
 
-    The native scan packs 2-bit bytes and collects the invalid positions in
-    one pass; without it, a numpy scan collects the positions and the 2-bit
-    pack is left to the consumer (``packed2`` None). Returns None when the
+    :func:`scan_stream`'s flat outputs (``packed2`` None after the numpy
+    scan: the 2-bit pack is left to the consumer). Returns None when the
     invalid positions exceed ``max_inv`` (the caller takes the dense path).
     """
-    from . import native
-
-    scanned = native.scan_stream_native(codes, qual, quality_threshold, max_inv)
-    if scanned is not None:
-        packed2_pre, inv, n_inv = scanned
-        if n_inv > max_inv:
-            return None
-        return packed2_pre, inv
-    inv = invalid_positions(codes, qual, quality_threshold)
-    if inv.shape[0] > max_inv:
-        return None
-    return None, inv
+    scan = scan_stream(codes, qual, quality_threshold, max_inv)
+    return (scan.packed2, scan.invpos) if scan.route == "flat" else None
 
 
 def flat_batches(
@@ -275,7 +402,7 @@ def flat_batches(
     :func:`_flat_eligible`) or when invalid bases exceed 1/32 of the
     stream: past that point the positions array outweighs a dense bitmask.
     ``prescanned`` takes a caller's own :func:`flat_scan` result in place
-    of the scan at ``max_inv = n // 32``.
+    of the scan at :func:`_flat_budget`.
     """
     w = block_windows
     if not _flat_eligible(k, w, batch_rows):
@@ -284,7 +411,7 @@ def flat_batches(
     scan = (
         prescanned
         if prescanned is not None
-        else flat_scan(codes, qual, quality_threshold, n // 32)
+        else flat_scan(codes, qual, quality_threshold, _flat_budget(n))
     )
     if scan is None:
         return None

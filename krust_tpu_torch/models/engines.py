@@ -345,7 +345,8 @@ class _Feed:
     synchronous loop. ``depth <= 0`` is the synchronous map.
 
     Three spans: ``feed_pack`` around each ``next()`` of ``gen`` (the
-    dense packer or the flat path's slicing) and ``feed_stage`` around each
+    dense route's row cuts, with its pack where no scan made it, or the
+    flat path's slicing) and ``feed_stage`` around each
     ``stage_fn`` call, both on the ``krust-feed`` thread (on the consumer's
     thread when ``depth <= 0``); ``feed_wait`` around the consumer's wait
     for a staged batch, on the consumer's thread, opened only when
@@ -531,10 +532,10 @@ class BatchEngine:
         Batch i is staged on ``devices[i % n]``, the table's devices, each
         device's copies on its own current stream, and the table takes the
         batches in that order; ``lifetimes`` charges each batch before its
-        add. Each batch's encode and add is one ``batch_span``; the flat
-        route's scan, which may end in the dense route, one ``flat_scan``.
+        add. Each batch's encode and add is one ``batch_span``; the route
+        scan one ``flat_scan`` (fields ``route``, ``invalid``, ``threads``).
         """
-        from ..io.packer import flat_batches, pack_buffer_2bit
+        from ..io.packer import pack_buffer_2bit, route_batches
         from ..ops.codec import encode_dense
         from ..ops.fused_codec import TAIL_BYTES, encode_windows
 
@@ -552,16 +553,22 @@ class BatchEngine:
             with torch.cuda.stream(streams_of[dev]):
                 return tuple(_to_device(a, dev) for a in arrays)
 
-        flat = None
         if cfg.use_flat:
-            # flat_batches scans here, on this thread; the dense route packs
-            # inside the feed's first next()
-            with span("flat_scan"):
-                flat = flat_batches(
+            # the route scan, here on the host's cores: the flat route's 2-bit
+            # bytes and invalid positions, or the dense route's 2-bit bytes and
+            # invalid mask, which the feed then only cuts into rows
+            with span("flat_scan") as fields:
+                scan, batches = route_batches(
                     streams.codes, qual_stream, k, thr, cfg.block_windows, cfg.batch_rows
                 )
-        if flat is not None:
-            batches = flat
+                fields.update(route=scan.route, invalid=scan.n_invalid, threads=scan.threads)
+            flat = scan.route == "flat"
+        else:
+            batches = pack_buffer_2bit(
+                streams.codes, qual_stream, k, thr, cfg.block_windows, cfg.batch_rows
+            )
+            flat = False
+        if flat:
 
             def stage(b):
                 need = b.rows * b.block_windows // 4 + TAIL_BYTES
@@ -577,9 +584,6 @@ class BatchEngine:
             def rows_and_windows(b):
                 return b.rows, b.covered
         else:  # dense: too many invalid bases, or a geometry flat cannot hold
-            batches = pack_buffer_2bit(
-                streams.codes, qual_stream, k, thr, cfg.block_windows, cfg.batch_rows
-            )
 
             def stage(b):  # padding rows are all-bad (0xFF badbits)
                 return to_device(b.packed2, b.badbits), b

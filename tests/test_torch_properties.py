@@ -153,13 +153,14 @@ def _reads(draw):
     return seqs, quals, draw(st.integers(1, 32)), draw(st.sampled_from([None, 20]))
 
 
-def _lifted_gate(real):
-    """``flat_batches`` with the 1/32 gate lifted: the flat route for any
-    stream whose geometry it can hold."""
-    def flat_batches(codes, qual, k, thr, w, rows):
-        scan = port_packer.flat_scan(codes, qual, thr, codes.shape[0])
-        return real(codes, qual, k, thr, w, rows, prescanned=scan)
-    return flat_batches
+def _gate(route, real):
+    """``scan_stream`` with the 1/32 gate lifted (flat: the flat route for
+    any stream whose geometry it can hold) or shut (dense: the dense route
+    for every stream)."""
+    def scan_stream(codes, qual, thr, max_inv, *a, **kw):
+        lifted = codes.shape[0] if max_inv >= 0 else max_inv
+        return real(codes, qual, thr, lifted if route == "flat" else -1, *a, **kw)
+    return scan_stream
 
 
 @pytest.mark.parametrize("epoch_sort", [True, False], ids=["epoch", "lsm"])
@@ -179,11 +180,10 @@ def test_engine_matches_jax_numpy_and_oracle(route, epoch_sort, reads):
         calls["dense"] += 1
         return real_dense(*a)
 
-    gate = (_lifted_gate(port_packer.flat_batches) if route == "flat"
-            else lambda *a, **kw: None)
+    gate = _gate(route, port_packer.scan_stream)
     cfg = EngineConfig(block_windows=64, batch_rows=4, device="cpu",
                        use_epoch_sort=epoch_sort)
-    with mock.patch.object(port_packer, "flat_batches", gate), \
+    with mock.patch.object(port_packer, "scan_stream", gate), \
             mock.patch.object(fused_mod, "encode_windows", flat), \
             mock.patch.object(codec_mod, "encode_dense", dense):
         got = BatchEngine(cfg).count(streams_from_sequences(seqs, quals), k, min_quality)

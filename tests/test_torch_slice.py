@@ -325,7 +325,7 @@ def test_flat_dense_boundary(monkeypatch, route, scan, extra):
     from krust_tpu.io.packer import flat_batches as jax_flat_batches
 
     if scan == "numpy":
-        monkeypatch.setattr(port_native, "scan_stream_native", lambda *a: None)
+        monkeypatch.setattr(port_native, "scan_pack_native", lambda *a: None)
     n = 32 * 200
     rng = np.random.default_rng(5)
     codes = rng.integers(0, 4, n, dtype=np.uint8)

@@ -86,7 +86,7 @@ def _run_sequence_case(case, rank, world, slots=None):
 
     streams = streams_from_sequences(local_sequences(case, rank, world))
     scans = {"n": 0}
-    real_scan = native.scan_stream_native
+    real_scan = native.scan_pack_native
 
     def spy(*a, **kw):
         scans["n"] += 1
@@ -102,7 +102,7 @@ def _run_sequence_case(case, rank, world, slots=None):
         return call
 
     limit = table_mod.EPOCH_WINDOW_LIMIT
-    native.scan_stream_native = spy
+    native.scan_pack_native = spy
     fused_codec.encode_windows, codec.encode_dense = counted("flat"), counted("dense")
     if case.get("window_limit"):
         table_mod.EPOCH_WINDOW_LIMIT = case["window_limit"]
@@ -112,7 +112,7 @@ def _run_sequence_case(case, rank, world, slots=None):
         mesh = make_mesh(devices=["cpu"] * slots) if slots else None
         result = count_sharded(streams, case["k"], mesh=mesh, config=cfg)
     finally:
-        native.scan_stream_native = real_scan
+        native.scan_pack_native = real_scan
         fused_codec.encode_windows, codec.encode_dense = real["flat"], real["dense"]
         table_mod.EPOCH_WINDOW_LIMIT = limit
     if scans["n"] > 1:
